@@ -1,24 +1,43 @@
 """Smoke run of the PyTorch port on one CUDA card: builds the voting kernels,
-holds each against its plain PyTorch version, drives the replay main path at
-the shipped configuration, checks what comes out, and times it.
+holds each against its plain PyTorch version at every shape the main path
+gives it (NX 79 and NX 261) and at edge cases, drives the replay main path,
+checks what comes out, and times the kernels beside their bounds.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--earlier path/to/an/earlier/voting.cu]
 
-Needs one CUDA card and nvcc; exits non-zero on any failure.  It prints the
+Needs one CUDA card and nvcc; exits non-zero on any failure.  With
+--earlier, the kernels of that source (same C entries) are built too and
+timed beside this checkout's at the NX 79 main-path shapes.  It prints the
 card's name and power limit, one line per check and time, then a JSON line
-of the kernels, and last the JSON line
+of the kernels, the card line again, and last the JSON line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
+import argparse
+import collections
 import json
 import statistics
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
+
+# H100 SXM peaks (NVIDIA's data sheet): float32 outside the tensor cores, an
+# FMA counted as two operations; HBM3
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+# lane instructions a second: 128 lanes a clock on each of 132 SMs at
+# 1.98 GHz, half the float32 peak, since that counts an FMA as two
+PEAK_LANE_INSTRUCTIONS = PEAK_F32_FLOPS / 2
+# instructions one point needs in one direction with no product+sum
+# contraction (the bins must equal the plain float32 bins): per bin three
+# products, three sums, the quotient (a product and four FMAs), a floor, a
+# conversion and a two-sided clamp; then the cell index and one atomic vote
+VOTE_INSTRUCTIONS = 2 * (3 + 3 + 5 + 1 + 1 + 2) + 2
 
 
 def fail(msg: str) -> None:
@@ -38,8 +57,9 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device ms of fn over reps launches, after one warm-up call."""
+def event_ms(fn, reps: int) -> float:
+    """Mean ms of fn over reps calls, CUDA events around the run, after one
+    warm-up call (host time between launches included)."""
     fn()
     torch.cuda.synchronize()
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -51,8 +71,65 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device ms of one fn call: reps calls captured in a CUDA graph and
+    replayed, so host time between launches does not count."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(replays):
+        g.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / (reps * replays)
+
+
+def bound(kind: str, n: int, n_active: int, rows: int, nxs: int) -> tuple:
+    """(bound ms, "bytes" or "operations") of one voting call: each input
+    read once (points, mask, plane bases, scalars) and each output written
+    once, against the instructions that bin and vote this call's active
+    points."""
+    in_bytes = n * 12 + n + rows * 24 + 12
+    out_bytes = rows * 12 if kind == "vote_state" else rows * nxs * nxs * 4
+    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
+    t_ops = VOTE_INSTRUCTIONS * n_active * rows / PEAK_LANE_INSTRUCTIONS * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def launcher(lib, name, Xs, act, c1, c2, half, dx, nx, NX):
+    """One launch of `name`'s kernel from the library `lib`, with the
+    wrapper's outputs and scalars made once: the kernel alone, so that two
+    libraries with the same C entries are timed alike."""
+    from pointcloud_segmentation_tpu_torch.ops import voting as V
+
+    B, N = c1.shape[0], Xs.shape[0]
+    half_dx, nxt, _ = V._launch_args(Xs, half, dx, nx)
+    if name == "vote_state":
+        outs = [torch.empty(B, dtype=torch.int32, device=Xs.device) for _ in range(3)]
+        entry = lib.pcs_vote_state
+    else:
+        outs = [torch.empty((B, NX, NX), dtype=torch.int32, device=Xs.device)]
+        entry = lib.pcs_vote_histogram
+    args = (Xs.data_ptr(), act.data_ptr(), N, c1.data_ptr(), c2.data_ptr(), B,
+            half_dx.data_ptr(), nxt.data_ptr(), NX, *(o.data_ptr() for o in outs))
+
+    def run(keep=(half_dx, nxt, outs)):   # keep: the tensors behind args
+        err = entry(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"{name} launch failed: CUDA error {err}")
+
+    return run
+
+
 def frames_of(scene, poses, spec, seed):
-    from pointcloud_segmentation_tpu.io.simulator import simulate_trajectory
+    from pointcloud_segmentation_tpu_torch.io.simulator import simulate_trajectory
 
     return simulate_trajectory(scene, poses, spec, seed=seed)
 
@@ -74,78 +151,183 @@ def max_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
 
 
-def kernel_checks(dev, frame, card):
+def gathered(c1, c2, rows, gen):
+    """`rows` rows of the table as the lazy re-exam gathers them: sorted
+    suspects, then copies of the last row as padding."""
+    B = c1.shape[0]
+    k = rows * 3 // 4
+    idx = torch.randperm(B, generator=gen)[:k].sort().values
+    idx = torch.cat([idx, torch.full((rows - k,), B - 1, dtype=torch.int64)]).to(c1.device)
+    return c1[idx].contiguous(), c2[idx].contiguous()
+
+
+class Shapes:
+    """The kernels' checks and times, shape by shape."""
+
+    def __init__(self, card, earlier=None):
+        from pointcloud_segmentation_tpu_torch._build import load_library
+
+        self.card = card
+        self.lib = load_library()
+        self.earlier = earlier   # an earlier library, timed beside this one
+        self.errs = {"vote_state": 0, "vote_histogram": 0}
+        self.times = []
+
+    def state(self, label, p, c1, c2, active=None, timed=False):
+        from pointcloud_segmentation_tpu_torch.ops import voting as V
+
+        Xs, act, half, dx, nx, NX = p
+        act = p[1] if active is None else active
+        k = V.vote_state(Xs, act, c1, c2, half, dx, nx, NX)
+        q = V.vote_state_plain(Xs, act, c1, c2, half, dx, nx, NX)
+        e = max(max_err(a, b) for a, b in zip(k, q))
+        self.errs["vote_state"] = max(self.errs["vote_state"], e)
+        check(e == 0, f"vote_state == plain, {label} ({c1.shape[0]} rows, "
+                      f"{int(act.sum())} active, NX {NX}): max err {e}")
+        if timed:
+            self.time("vote_state", label, Xs, act, c1, c2, half, dx, nx, NX, compare=True)
+        return k
+
+    def histogram(self, label, p, c1, c2, active=None, timed=False):
+        from pointcloud_segmentation_tpu_torch.ops import voting as V
+
+        Xs, act, half, dx, nx, NX = p
+        act = p[1] if active is None else active
+        k = V.vote_histogram(Xs, act, c1, c2, half, dx, nx, NX)
+        q = V.vote_histogram_plain(Xs, act, c1, c2, half, dx, nx, NX)
+        e = max_err(k, q)
+        self.errs["vote_histogram"] = max(self.errs["vote_histogram"], e)
+        check(e == 0, f"vote_histogram == plain, {label} ({c1.shape[0]} rows, "
+                      f"{int(act.sum())} active, NX {NX}): max err {e}")
+        del k, q
+        if timed:
+            self.time("vote_histogram", label, Xs, act, c1, c2, half, dx, nx, NX,
+                      compare=True)
+
+    def time(self, name, label, Xs, act, c1, c2, half, dx, nx, NX, compare=False):
+        """Kernel ms (CUDA-graph replays of the kernel's launch alone), plain
+        and library ms, and the bound.  With an earlier library and
+        `compare`, the two kernels are timed earlier, this, this, earlier."""
+        from pointcloud_segmentation_tpu_torch.ops import voting as V
+
+        plain = getattr(V, name + "_plain")
+        this = launcher(self.lib, name, Xs, act, c1, c2, half, dx, nx, NX)
+        earlier_ms, readings = None, ""
+        if compare and self.earlier is not None:
+            before = launcher(self.earlier, name, Xs, act, c1, c2, half, dx, nx, NX)
+            e1, t1, t2, e2 = (graph_ms(f) for f in (before, this, this, before))
+            ms, earlier_ms = (t1 + t2) / 2, (e1 + e2) / 2
+            readings = (f", earlier kernel {earlier_ms:.4f} ms ({ms / earlier_ms:.1%} of it; "
+                        f"earlier, this, this, earlier: {e1:.4f} {t1:.4f} {t2:.4f} {e2:.4f})")
+        else:
+            ms = graph_ms(this)
+        plain_ms = event_ms(lambda: plain(Xs, act, c1, c2, half, dx, nx, NX), 3)
+        library_ms = None
+        if name == "vote_histogram":
+            # count-only yardstick: one bincount over precomputed flat keys
+            B, cells = c1.shape[0], NX * NX
+            xi, yi = V.vote_bins(Xs[act], c1, c2, half, dx, nx)
+            keys = (torch.arange(B, device=Xs.device)[:, None] * cells
+                    + xi.to(torch.int64) * NX + yi).reshape(-1)
+            library_ms = event_ms(lambda: torch.bincount(keys, minlength=B * cells), 10)
+            del xi, yi, keys
+        n_act = int(act.sum())
+        b_ms, b_by = bound(name, Xs.shape[0], n_act, c1.shape[0], NX)
+        rec = {"name": name, "shape": label, "rows": c1.shape[0], "n": Xs.shape[0],
+               "active": n_act, "nx": NX, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "earlier_ms": earlier_ms}
+        self.times.append(rec)
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        print(f"time  {name}, {label} ({c1.shape[0]} rows, N {Xs.shape[0]}, {n_act} active, "
+              f"NX {NX}): kernel {ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}, "
+              f"{b_ms / ms:.1%} of it), plain {plain_ms:.4f} ms, library {lib}{readings} "
+              f"[{self.card}]", flush=True)
+
+
+def kernel_checks(dev, frame, card, earlier=None):
     """Each kernel against its plain version on the card, at the shapes the
-    main path gives it; returns the kernels' error and time records."""
-    from pointcloud_segmentation_tpu.config import default_config
+    main path gives it at NX 79 and NX 261, and at edge cases."""
+    from pointcloud_segmentation_tpu_torch.config import default_config
     from pointcloud_segmentation_tpu_torch.ops import voting as V
     from pointcloud_segmentation_tpu_torch.ops.hough import (
-        _compact_removed, _pad_dirs_to_tile, direction_tables)
+        _compact_removed, _pad_dirs_to_tile, center_cloud, direction_tables)
 
+    sh = Shapes(card, earlier)
+    g = torch.Generator().manual_seed(0)
+    dirs6, c16, c26 = _pad_dirs_to_tile(*direction_tables(6, dev))
+    _, c14, c24 = _pad_dirs_to_tile(*direction_tables(4, dev))
+    for radius in (0.05, 0.015):
+        cfg6 = default_config(radius_sizes=(radius,))
+        cfg4 = default_config(granularity=4, radius_sizes=(radius,))
+        NX = cfg6.num_x_max
+        p6 = voting_problem(cfg6, frame, dev) + (NX,)
+        p4 = voting_problem(cfg4, frame, dev) + (NX,)
+        timed = radius == 0.05
+        Xs, act, half, dx, nx, _ = p6
+        print(f"frame at radius {radius}: {int(act.sum())} voxel points of {Xs.shape[0]}, "
+              f"num_x {int(nx)}, NX {NX}, {c16.shape[0]} directions", flush=True)
+
+        xk, yk = V.vote_bins_kernel(Xs, c16, c26, half, dx, nx)
+        xp, yp = V.vote_bins(Xs, c16, c26, half, dx, nx)
+        n_bad = int((xk != xp).sum() + (yk != yp).sum())
+        check(n_bad == 0, f"bins bit-equal on a g6 frame at NX {NX}: "
+                          f"{2 * xk.numel()} bins, {n_bad} differ")
+        del xk, yk, xp, yp
+
+        sh.state("the full g6 table", p6, c16, c26, timed=timed)
+        for rows in (2048, 256):
+            sh.state(f"{rows} gathered rows", p6, *gathered(c16, c26, rows, g), timed=timed)
+        removed = act & (torch.rand(act.shape, generator=g).to(dev) < 0.3)
+        sh.state("the rebuild (30% of points removed)", p6, c16, c26, active=act & ~removed)
+
+        X4, act4, half4, dx4, nx4, _ = p4
+        sh.histogram("g4", p4, c14, c24, timed=timed)
+        n_rem = min(512, int(act4.sum()))
+        rem = act4 & (torch.cumsum(act4.to(torch.int32), 0) <= n_rem)
+        Xr = _compact_removed(X4, rem, n_rem).contiguous()
+        live = torch.ones(n_rem, dtype=torch.bool, device=dev)
+        sh.histogram(f"a {n_rem}-column delta", (Xr, live, half4, dx4, nx4, NX),
+                     c14, c24, timed=timed)
+        if radius == 0.015:
+            sh.time("vote_state", "the full g6 table", Xs, act, c16, c26, half, dx, nx, NX)
+            sh.time("vote_histogram", "g4", X4, act4, c14, c24, half4, dx4, nx4, NX)
+
+    # edge cases at NX 79
     cfg6 = default_config()
     NX = cfg6.num_x_max
-    Xs, act, half, dx, nx = voting_problem(cfg6, frame, dev)
-    _, c1, c2 = _pad_dirs_to_tile(*direction_tables(6, dev))
-    B = c1.shape[0]
-    print(f"frame: {int(act.sum())} voxel points of {Xs.shape[0]}, num_x "
-          f"{int(nx)}, NX {NX}, {B} directions", flush=True)
+    p6 = voting_problem(cfg6, frame, dev) + (NX,)
+    Xs, act, half, dx, nx, _ = p6
+    none = torch.zeros_like(act)
+    best, key, ub = sh.state("an all-false mask", p6, c16, c26, active=none)
+    check(int(best.abs().max() + key.abs().max() + ub.abs().max()) == 0,
+          "an all-false mask gives (0, 0, 0) in every direction")
+    sh.histogram("an all-false mask", p6, c14, c24, active=none)
+    everyone = torch.ones_like(act)
+    sh.state("N = 4096 all active", p6, c16, c26, active=everyone)
+    sh.histogram("N = 4096 all active", p6, c14, c24, active=everyone)
+    t = torch.linspace(-1.0, 1.0, Xs.shape[0], device=dev)[:, None]
+    line = (t * dirs6[1000][None, :] + torch.tensor([0.2, -0.1, 0.3], device=dev)).contiguous()
+    Xl, _, _, half_l, nx_l = center_cloud(line, everyone, dx)
+    pl = (Xl, everyone, half_l, dx, nx_l, NX)
+    best, _, _ = sh.state("4096 points on one line along direction 1000", pl, c16, c26)
+    print(f"      the line's own direction: {int(best[1000])} of {Xs.shape[0]} points "
+          f"in its best cell", flush=True)
+    sh.histogram("4096 points on one line", pl, c14, c24)
 
-    xk, yk = V.vote_bins_kernel(Xs, c1, c2, half, dx, nx)
-    xp, yp = V.vote_bins(Xs, c1, c2, half, dx, nx)
-    n_bad = int((xk != xp).sum() + (yk != yp).sum())
-    check(n_bad == 0, f"bins bit-equal on a g6 frame: {2 * xk.numel()} bins, {n_bad} differ")
-    del xk, yk, xp, yp
-
-    errs = {"vote_state": 0, "vote_histogram": 0}
-
-    def state_case(label, c1_, c2_, active):
-        k = V.vote_state(Xs, active, c1_, c2_, half, dx, nx, NX)
-        p = V.vote_state_plain(Xs, active, c1_, c2_, half, dx, nx, NX)
-        e = max(max_err(a, b) for a, b in zip(k, p))
-        errs["vote_state"] = max(errs["vote_state"], e)
-        check(e == 0, f"vote_state == plain at {label} ({c1_.shape[0]} rows): max err {e}")
-
-    state_case("the full g6 table", c1, c2, act)
-    g = torch.Generator().manual_seed(0)
-    for rows in (256, 2048):
-        idx = torch.randperm(B, generator=g)[:rows].sort().values.to(dev)
-        state_case(f"{rows} gathered rows", c1[idx].contiguous(), c2[idx].contiguous(), act)
-    removed = act & (torch.rand(act.shape, generator=g).to(dev) < 0.3)
-    state_case("the rebuild (30% of points removed)", c1, c2, act & ~removed)
-
-    cfg4 = default_config(granularity=4)
-    X4, act4, half4, dx4, nx4 = voting_problem(cfg4, frame, dev)
-    _, c14, c24 = _pad_dirs_to_tile(*direction_tables(4, dev))
-    hk = V.vote_histogram(X4, act4, c14, c24, half4, dx4, nx4, NX)
-    hp = V.vote_histogram_plain(X4, act4, c14, c24, half4, dx4, nx4, NX)
-    e = max_err(hk, hp)
-    check(e == 0, f"vote_histogram == plain at g4 ({c14.shape[0]} rows): max err {e}")
-    errs["vote_histogram"] = e
-    n_rem = min(512, int(act4.sum()))
-    rem = act4 & (torch.cumsum(act4.to(torch.int32), 0) <= n_rem)
-    Xr = _compact_removed(X4, rem, n_rem).contiguous()
-    live = torch.ones(n_rem, dtype=torch.bool, device=dev)
-    hk = V.vote_histogram(Xr, live, c14, c24, half4, dx4, nx4, NX)
-    hp = V.vote_histogram_plain(Xr, live, c14, c24, half4, dx4, nx4, NX)
-    e = max_err(hk, hp)
-    check(e == 0, f"vote_histogram == plain on a {n_rem}-column delta: max err {e}")
-    errs["vote_histogram"] = max(errs["vote_histogram"], e)
-
-    times = {
-        "vote_state": (
-            cuda_ms(lambda: V.vote_state(Xs, act, c1, c2, half, dx, nx, NX), 20),
-            cuda_ms(lambda: V.vote_state_plain(Xs, act, c1, c2, half, dx, nx, NX), 3)),
-        "vote_histogram": (
-            cuda_ms(lambda: V.vote_histogram(X4, act4, c14, c24, half4, dx4, nx4, NX), 20),
-            cuda_ms(lambda: V.vote_histogram_plain(X4, act4, c14, c24, half4, dx4, nx4, NX), 3)),
-    }
-    print(f"time  vote_state, full g6 table ({B} rows, N {Xs.shape[0]}): kernel "
-          f"{times['vote_state'][0]:.4f} ms, plain {times['vote_state'][1]:.4f} ms "
-          f"[{card}]", flush=True)
-    print(f"time  vote_histogram, g4 ({c14.shape[0]} rows, N {X4.shape[0]}): kernel "
-          f"{times['vote_histogram'][0]:.4f} ms, plain {times['vote_histogram'][1]:.4f} ms "
-          f"[{card}]", flush=True)
-    return errs, times
+    # the chunked staging: points that do not fit beside one histogram
+    big = V.MAX_NX
+    sh.state(f"NX {big}, the largest grid (points staged in chunks)", p6[:5] + (big,), c16, c26)
+    sh.histogram(f"NX {big}, the largest grid (points staged in chunks)", p6[:5] + (big,),
+                 *gathered(c14, c24, 256, g))
+    gen = torch.Generator().manual_seed(1)
+    cloud = (torch.rand(20_000, 3, generator=gen) * 2.4 - 1.2).to(dev)
+    Xc, _, _, half_c, nx_c = center_cloud(cloud, torch.ones(20_000, dtype=torch.bool,
+                                                            device=dev), dx)
+    pc = (Xc, torch.ones(20_000, dtype=torch.bool, device=dev), half_c, dx, nx_c, NX)
+    sh.state("N = 20,000 (points staged in chunks)", pc, c16, c26)
+    sh.histogram("N = 20,000 (points staged in chunks)", pc, c14, c24)
+    return sh
 
 
 def endpoints(s):
@@ -162,11 +344,11 @@ def endpoint_gap(s, g) -> float:
 
 def golden_checks(dev):
     """Both golden fixtures of tests/test_golden.py, through the kernels."""
-    from pointcloud_segmentation_tpu.config import default_config, StaticShapes
-    from pointcloud_segmentation_tpu.io.scene import OBS_TESTS_SCENE, WP_TESTS, trajectory_poses
-    from pointcloud_segmentation_tpu.io.simulator import TofSpec
-    from pointcloud_segmentation_tpu.runtime.csvio import read_segments_csv
     from pointcloud_segmentation_tpu_torch import SegmentationEngine
+    from pointcloud_segmentation_tpu_torch.config import StaticShapes, default_config
+    from pointcloud_segmentation_tpu_torch.io.scene import OBS_TESTS_SCENE, WP_TESTS, trajectory_poses
+    from pointcloud_segmentation_tpu_torch.io.simulator import TofSpec
+    from pointcloud_segmentation_tpu_torch.runtime.csvio import read_segments_csv
 
     poses = trajectory_poses(WP_TESTS, hz=1.0, velocity=0.4)
     cases = (
@@ -190,6 +372,20 @@ def golden_checks(dev):
         check(worst < 2e-2, f"{name} ({cfg.voting_mode}): endpoints within 2e-2 (worst {worst:.3g})")
 
 
+class Counted:
+    """A voting function that counts its calls by (rows, points); the
+    carry subtract's removed points (at most 512) count as one shape."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.shapes = collections.Counter()
+
+    def __call__(self, Xs, active, c1, *args):
+        n = Xs.shape[0]
+        self.shapes[(c1.shape[0], n if n > 512 else "<= 512")] += 1
+        return self.fn(Xs, active, c1, *args)
+
+
 def replay(cfg, frames, dev, voting):
     from pointcloud_segmentation_tpu_torch import SegmentationEngine
     from pointcloud_segmentation_tpu_torch.convert import world_state_to_numpy
@@ -204,7 +400,7 @@ def replay(cfg, frames, dev, voting):
 def beams_matched(segs) -> int:
     """Beams of the 7-beam scene matched by a world segment within 0.1 rad
     of the beam's axis whose midpoint lies within 0.5 m of its centre."""
-    from pointcloud_segmentation_tpu.io.scene import OBS_TESTS_SCENE
+    from pointcloud_segmentation_tpu_torch.io.scene import OBS_TESTS_SCENE
 
     matched = 0
     for c in OBS_TESTS_SCENE:
@@ -231,7 +427,32 @@ def same_extraction(run, ref, label):
     check(worst <= 5e-3, f"{label}: endpoints within 5e-3 (worst {worst:.3g})")
 
 
+def counted_run(label, cfg, frames, dev, name):
+    """One path of the main path, its kernel's launch count set to 0 just
+    before and read just after; returns (run, launches)."""
+    from pointcloud_segmentation_tpu_torch.ops import voting as V
+    from pointcloud_segmentation_tpu_torch.ops.hough import Voting
+
+    voting = Voting(Counted(V.vote_state), Counted(V.vote_histogram))
+    V.vote_state.launches = 0
+    V.vote_histogram.launches = 0
+    run = replay(cfg, frames, dev, voting)
+    launches = {"vote_state": V.vote_state.launches,
+                "vote_histogram": V.vote_histogram.launches}
+    shapes = dict(sorted(getattr(voting, name).shapes.items(), key=str))
+    print(f"launches, {label}: vote_state {launches['vote_state']}, vote_histogram "
+          f"{launches['vote_histogram']}; {name} calls by (rows, points) {shapes}", flush=True)
+    check(launches[name] > 0, f"{label} launched {name} {launches[name]} times")
+    check(launches[name] == sum(shapes.values()),
+          f"{label}: every {name} call of the path launched the kernel")
+    return run, launches[name]
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one CUDA card.")
+    ap.add_argument("--earlier", metavar="VOTING_CU",
+                    help="an earlier csrc/voting.cu whose kernels are timed beside these")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: chip_smoke needs a CUDA card")
     card = card_line()
@@ -242,11 +463,10 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
-    from pointcloud_segmentation_tpu.config import default_config
-    from pointcloud_segmentation_tpu.io.scene import OBS_TESTS_SCENE, WP_TESTS, trajectory_poses
-    from pointcloud_segmentation_tpu.io.simulator import TofSpec
     from pointcloud_segmentation_tpu_torch import _build
-    from pointcloud_segmentation_tpu_torch.ops import voting as V
+    from pointcloud_segmentation_tpu_torch.config import default_config
+    from pointcloud_segmentation_tpu_torch.io.scene import OBS_TESTS_SCENE, WP_TESTS, trajectory_poses
+    from pointcloud_segmentation_tpu_torch.io.simulator import TofSpec
     from pointcloud_segmentation_tpu_torch.ops.hough import KERNELS, PLAIN
 
     t0 = time.perf_counter()
@@ -254,37 +474,35 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.2f} s to build and load "
           f"({_build.BuildInfo.seconds:.2f} s in nvcc) -> {_build.BuildInfo.path}", flush=True)
     for line in _build.BuildInfo.log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "Compiling entry" in line or "spill" in line:
             print("ptxas " + line.strip(), flush=True)
+    earlier = None
+    if args.earlier:
+        earlier = _build.load_library(Path(args.earlier).resolve())
+        print(f"build: the earlier {args.earlier} -> {_build.BuildInfo.path}", flush=True)
 
     # the full-size replay: shipped config, default StaticShapes, 64x64 ToF
     poses = trajectory_poses(WP_TESTS, hz=2.0, velocity=0.25)
     frames = frames_of(OBS_TESTS_SCENE, poses, TofSpec(noise_frac=0.002), 0)
     check(len(frames) == 31, f"{len(frames)} frames in the full-size replay")
 
-    errs, times = kernel_checks(dev, frames[len(frames) // 2], card)
+    sh = kernel_checks(dev, frames[len(frames) // 2], card, earlier)
     golden_checks(dev)
 
     cfg6 = default_config()
     cfg4 = default_config(granularity=4)
-    check(cfg6.voting_mode == "lazy" and cfg4.voting_mode == "carry",
-          "g6 resolves to lazy voting, g4 to carry")
+    cfg6s = default_config(radius_sizes=(0.015,))
+    check(cfg6.voting_mode == "lazy" and cfg4.voting_mode == "carry"
+          and cfg6s.voting_mode == "lazy" and cfg6s.num_x_max == 261,
+          "g6 resolves to lazy voting, g4 to carry; radius 0.015 gives NX 261")
 
-    # the main path, counted: the shipped g6 replay (lazy, vote_state), then
-    # the g4 replay (carry, vote_histogram)
-    V.vote_state.launches = 0
-    V.vote_histogram.launches = 0
-    k6 = replay(cfg6, frames, dev, KERNELS)
-    n_state_g6, n_hist_g6 = V.vote_state.launches, V.vote_histogram.launches
-    k4 = replay(cfg4, frames, dev, KERNELS)
-    launches = {"vote_state": V.vote_state.launches,
-                "vote_histogram": V.vote_histogram.launches}
-    print(f"launches on the main path: g6 vote_state {n_state_g6}, vote_histogram "
-          f"{n_hist_g6}; g4 vote_histogram {launches['vote_histogram'] - n_hist_g6}",
-          flush=True)
-    check(n_state_g6 > 0, f"g6 replay launched vote_state {n_state_g6} times")
-    check(launches["vote_histogram"] > n_hist_g6,
-          f"g4 replay launched vote_histogram {launches['vote_histogram'] - n_hist_g6} times")
+    # the main path, counted path by path: the shipped g6 replay (lazy,
+    # vote_state), the g4 replay (carry, vote_histogram), and a short g6
+    # replay at radius 0.015 (NX 261)
+    k6, n_state = counted_run("g6 replay", cfg6, frames, dev, "vote_state")
+    k4, n_hist = counted_run("g4 replay", cfg4, frames, dev, "vote_histogram")
+    short = frames[10:15]
+    k6s, _ = counted_run("g6 replay at radius 0.015", cfg6s, short, dev, "vote_state")
 
     for label, run in (("g6", k6), ("g4", k4)):
         statuses = [r["status"] for r in run["records"]]
@@ -298,6 +516,8 @@ def main() -> None:
     same_extraction(k6, p6, "g6 kernels vs plain on the card")
     p4 = replay(cfg4, frames, dev, PLAIN)
     same_extraction(k4, p4, "g4 kernels vs plain on the card")
+    p6s = replay(cfg6s, short, dev, PLAIN)
+    same_extraction(k6s, p6s, "g6 radius 0.015 kernels vs plain on the card")
 
     k6b = replay(cfg6, frames, dev, KERNELS)
     same = all(np.array_equal(k6["state"][f], k6b["state"][f], equal_nan=True)
@@ -315,12 +535,23 @@ def main() -> None:
 
     sources = {"vote_state": "tools/exp_g6_pallas.py:156",
                "vote_histogram": "pointcloud_segmentation_tpu/ops/voting_pallas.py:49"}
-    kernels = [{"name": name, "route": "cuda",
-                "source": "pointcloud_segmentation_tpu_torch/csrc/voting.cu",
-                "replaces": sources[name], "launches": launches[name],
-                "max_abs_err": errs[name], "ms": times[name][0],
-                "plain_ms": times[name][1]}
-               for name in ("vote_state", "vote_histogram")]
+    main_shape = {"vote_state": "the full g6 table", "vote_histogram": "g4"}
+    launches = {"vote_state": n_state, "vote_histogram": n_hist}
+    kernels = []
+    for name in ("vote_state", "vote_histogram"):
+        shapes = [r for r in sh.times if r["name"] == name]
+        head = next(r for r in shapes if r["shape"] == main_shape[name] and r["nx"] == 79)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "pointcloud_segmentation_tpu_torch/csrc/voting.cu",
+            "replaces": sources[name], "launches": launches[name],
+            "max_abs_err": sh.errs[name], "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "shapes": [{k: r[k] for k in ("shape", "rows", "n", "active", "nx", "ms",
+                                          "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                          "earlier_ms")}
+                       for r in shapes]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,14 @@
 """PyTorch/CUDA port of the point-cloud segmentation pipeline.
 
 The package beside ``pointcloud_segmentation_tpu`` (the JAX reference, which
-it is tested against).  It imports torch and never jax: the framework-free
-modules (config, sphere, io, oracle, runtime.csvio, runtime.posebuffer) are
-used from the JAX package as they are, and importing them pulls in no jax.
+it is tested against).  It imports torch and never jax, and nothing of the
+JAX package: it keeps its own copies of the framework-free code it needs
+(config, sphere, io.scene, io.simulator, runtime.csvio, runtime.posebuffer).
 The Hough voting runs in two kernels written in CUDA C++ for Hopper
 (``csrc/voting.cu``), built with nvcc at first use.
 """
 
-from pointcloud_segmentation_tpu.config import (NUM_DIRECTIONS, PipelineConfig,
-                                                StaticShapes, default_config)
-
+from .config import NUM_DIRECTIONS, PipelineConfig, StaticShapes, default_config
 from .pipeline import FrameOutput, init_world, process_frame
 from .runtime.engine import SegmentationEngine
 

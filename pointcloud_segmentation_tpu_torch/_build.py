@@ -61,22 +61,24 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def _library_path() -> Path:
-    h = hashlib.sha256(_SOURCE.read_bytes())
+def _library_path(source: Path) -> Path:
+    h = hashlib.sha256(source.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libpcs_voting_{h.hexdigest()[:16]}.so"
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the voting library; raises on failure."""
-    path = _library_path()
+def load_library(source: Path = _SOURCE) -> ctypes.CDLL:
+    """Build (if needed) and load the voting library; raises on failure.
+    `source` may name another copy of ``voting.cu`` with the same C entries,
+    such as an earlier version to time beside this one."""
+    path = _library_path(source)
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
                               capture_output=True, text=True)
         BuildInfo.seconds = time.perf_counter() - t0
         BuildInfo.log = proc.stdout + proc.stderr

@@ -19,10 +19,9 @@ from typing import NamedTuple
 
 import torch
 
-from pointcloud_segmentation_tpu.config import PipelineConfig
-from pointcloud_segmentation_tpu.sphere import hough_space
-
+from ..config import PipelineConfig
 from ..geometry import canonicalize_direction
+from ..sphere import hough_space
 from .eigh3 import eigvalsh3, principal_eigenvector3
 from . import voting as V
 

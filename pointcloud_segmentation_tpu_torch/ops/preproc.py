@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from pointcloud_segmentation_tpu.config import PipelineConfig
+from ..config import PipelineConfig
 
 
 def window_mask(points: torch.Tensor, window_size: float) -> torch.Tensor:

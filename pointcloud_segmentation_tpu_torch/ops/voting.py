@@ -18,7 +18,15 @@ from __future__ import annotations
 import torch
 
 _TILE = 128                # directions per tile of the plain versions
-_SHARED_BYTES = 232_448    # shared memory one Hopper block can hold (227 KB)
+
+# The kernels' shared-memory budget (csrc/voting.cu): one histogram of
+# 16-bit counts, padded to 16 bytes, beside a staging chunk of 256 points
+# (12 bytes each) and 1 KB of static shared memory must fit in one Hopper
+# block's 232,448 bytes.
+_SHARED_BYTES = 232_448
+MAX_NX = max(n for n in range(1, 512)
+             if ((n * n + 1) // 2 + 3) // 4 * 16 + 256 * 12 + 1_024 <= _SHARED_BYTES)
+_MAX_POINTS = 65_535       # a 16-bit count holds at most this many votes
 
 
 def vote_bins(Xs, c1, c2, half, dx, num_x):
@@ -106,14 +114,21 @@ def _check_cuda_args(Xs, active, c1, c2, half, dx, num_x, num_x_static):
         raise ValueError("half, dx and num_x must hold one value each")
     if num_x.dtype != torch.int32:
         raise ValueError("num_x must be int32")
-    if num_x_static < 1 or num_x_static * num_x_static * 4 > _SHARED_BYTES:
-        raise ValueError(
-            f"num_x_static={num_x_static}: a {num_x_static}x{num_x_static} int32 "
-            f"histogram does not fit in one block's shared memory "
-            f"({_SHARED_BYTES} bytes); the largest is 241")
     for name, t in (("Xs", Xs), ("active", active), ("c1", c1), ("c2", c2)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if num_x_static is None:   # bins only: no histogram, no count
+        return
+    if not 1 <= num_x_static <= MAX_NX:
+        raise ValueError(
+            f"num_x_static={num_x_static}: a {num_x_static}x{num_x_static} histogram "
+            f"of 16-bit counts beside a 256-point staging chunk does not fit in "
+            f"one block's shared memory ({_SHARED_BYTES} bytes); the largest is "
+            f"{MAX_NX}")
+    if Xs.shape[0] > _MAX_POINTS:
+        raise ValueError(
+            f"{Xs.shape[0]} points: the kernels count in 16 bits, so N must stay "
+            f"below 65,536")
 
 
 def _launch_args(Xs, half, dx, num_x):
@@ -187,7 +202,7 @@ def vote_bins_kernel(Xs, c1, c2, half, dx, num_x):
     from .._build import load_library
 
     active = torch.ones(Xs.shape[0], dtype=torch.bool, device=Xs.device)
-    _check_cuda_args(Xs, active, c1, c2, half, dx, num_x, 1)
+    _check_cuda_args(Xs, active, c1, c2, half, dx, num_x, None)
     B, N = c1.shape[0], Xs.shape[0]
     xi = torch.empty((B, N), dtype=torch.int32, device=Xs.device)
     yi = torch.empty_like(xi)

@@ -11,8 +11,7 @@ from typing import NamedTuple
 
 import torch
 
-from pointcloud_segmentation_tpu.config import PipelineConfig
-
+from .config import PipelineConfig
 from .geometry import quat_to_rot
 from .ops.hough import KERNELS, SegmentBatch, Voting, extract_lines
 from .ops.preproc import preprocess

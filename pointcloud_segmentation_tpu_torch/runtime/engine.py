@@ -16,15 +16,26 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from pointcloud_segmentation_tpu.config import PipelineConfig
-from pointcloud_segmentation_tpu.runtime import csvio
-from pointcloud_segmentation_tpu.runtime.engine import SegmentationEngine as JaxEngine
-from pointcloud_segmentation_tpu.runtime.posebuffer import PoseBuffer
-
+from ..config import PipelineConfig
 from ..convert import load_jax_checkpoint, world_state_from_numpy
 from ..ops.hough import KERNELS, Voting, direction_tables
 from ..pipeline import process_frame
 from ..worldmap import init_world
+from . import csvio
+from .posebuffer import PoseBuffer
+
+
+def intersection_pairs(inter: np.ndarray, n: int) -> List[tuple]:
+    """(i, t1, j, t2) rows of the (S, S, 2) intersection-parameter plane,
+    upper-triangular scan order (node.cpp:858), skipping the (-1, -1)
+    sentinel of an empty pair (worldmap.update_intersections)."""
+    rows = []
+    for i in range(n):
+        for j in range(i):
+            t1, t2 = inter[i, j]
+            if t1 != -1.0 and t2 != -1.0:
+                rows.append((i, float(t1), j, float(t2)))
+    return rows
 
 
 class SegmentationEngine:
@@ -138,8 +149,7 @@ class SegmentationEngine:
     def intersections_rows(self) -> List[tuple]:
         """(seg1, t1, seg2, t2) rows, upper-triangular order (node.cpp:858)."""
         n = int(self._state.count)
-        # the JAX engine's decoder of the (-1, -1) sentinel (numpy only)
-        return JaxEngine._intersection_pairs(self._state.inter[:n, :n].cpu().numpy(), n)
+        return intersection_pairs(self._state.inter[:n, :n].cpu().numpy(), n)
 
     def load_checkpoint(self, path: str) -> None:
         """Resume the world map and records from a JAX engine's checkpoint."""

@@ -16,8 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from pointcloud_segmentation_tpu.config import PipelineConfig
-
+from .config import PipelineConfig
 from .ops.hough import SegmentBatch, scatter_rows
 
 

@@ -16,6 +16,7 @@ from pointcloud_segmentation_tpu import oracle
 from pointcloud_segmentation_tpu.config import default_config, StaticShapes
 from pointcloud_segmentation_tpu.ops.hough import extract_lines_jit
 
+from pointcloud_segmentation_tpu_torch import config as TC
 from pointcloud_segmentation_tpu_torch.ops import hough as TH
 from pointcloud_segmentation_tpu_torch.ops.hough import extract_lines
 
@@ -105,6 +106,30 @@ def test_lazy_equals_carry_in_the_port(seed):
     assert int(rc.nlines) == int(rl.nlines) and int(rc.status) == int(rl.status)
     for f in rc.segments._fields:
         assert torch.equal(getattr(rc.segments, f), getattr(rl.segments, f)), f
+
+
+@pytest.mark.parametrize("mode", ["carry", "lazy"])
+def test_radius_0015_matches_jax(mode):
+    """The NX 261 grid of radius_sizes=(0.015,) end to end, in both voting
+    modes (the case of tests/test_hough_extra.py's num_x > 256 parity):
+    each package built from its own config of the same keys."""
+    keys = dict(granularity=2, opt_minvotes=12, min_pca_coeff=0.9, opt_nlines=5,
+                radius_sizes=(0.015,), voting=mode)
+    jcfg = default_config(**keys, shapes=StaticShapes(max_raw_points=4096, max_points=2048))
+    tcfg = TC.default_config(**keys, shapes=TC.StaticShapes(max_raw_points=4096,
+                                                            max_points=2048))
+    assert tcfg.num_x_max == jcfg.num_x_max == 261
+    rng = np.random.default_rng(11)
+    clouds = []
+    for a, b in (([0.2, -0.6, 0.3], [0.1, 1.0, 0.2]), ([0.8, 0.5, 1.1], [1.0, -0.2, 0.1])):
+        t = np.linspace(0, 1.3, 400)
+        b = np.asarray(b) / np.linalg.norm(b)
+        clouds.append(np.asarray(a) + t[:, None] * b + rng.normal(0, 0.003, (400, 3)))
+    padded, valid = pad(np.concatenate(clouds).astype(np.float32), 2048)
+    rj = extract_lines_jit(jnp.asarray(padded), jnp.asarray(valid), jcfg)
+    rt = extract_lines(torch.from_numpy(padded), torch.from_numpy(valid), tcfg)
+    assert_same_extraction(rj, rt)
+    assert int(rt.segments.valid.sum()) >= 2
 
 
 def test_spill_branch_matches_jax():

@@ -1,0 +1,250 @@
+"""The PyTorch port stands alone: it imports nothing of the JAX package, and
+its copies of the JAX package's framework-free code (config, sphere,
+quat_to_rot, the simulator, the pose buffer, the CSV writers, the
+intersection rows) give the same values as the originals."""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from pointcloud_segmentation_tpu import config as JC
+from pointcloud_segmentation_tpu import geometry as JG
+from pointcloud_segmentation_tpu import sphere as JS
+from pointcloud_segmentation_tpu.io import scene as JSC
+from pointcloud_segmentation_tpu.io import simulator as JSIM
+from pointcloud_segmentation_tpu.runtime import csvio as JCSV
+from pointcloud_segmentation_tpu.runtime.engine import SegmentationEngine as JaxEngine
+from pointcloud_segmentation_tpu.runtime.posebuffer import PoseBuffer as JPoseBuffer
+
+from pointcloud_segmentation_tpu_torch import config as TC
+from pointcloud_segmentation_tpu_torch import geometry as TG
+from pointcloud_segmentation_tpu_torch import sphere as TS
+from pointcloud_segmentation_tpu_torch.io import scene as TSC
+from pointcloud_segmentation_tpu_torch.io import simulator as TSIM
+from pointcloud_segmentation_tpu_torch.runtime import csvio as TCSV
+from pointcloud_segmentation_tpu_torch.runtime.engine import intersection_pairs
+from pointcloud_segmentation_tpu_torch.runtime.posebuffer import PoseBuffer as TPoseBuffer
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "pointcloud_segmentation_tpu_torch")
+JAX_PKG = "pointcloud_segmentation_tpu"
+
+
+def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import pointcloud_segmentation_tpu_torch as P\n"
+        "mods = [m.name for m in pkgutil.walk_packages(P.__path__, P.__name__ + '.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'pointcloud_segmentation_tpu')\n"
+        "       or m.startswith(('jax.', 'pointcloud_segmentation_tpu.'))]\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout) >= 18
+
+
+def jax_package_imports(src: str, rel_path: str) -> list:
+    """Every import of the JAX package in one source file at rel_path (from
+    the repo's root): absolute, relative that climbs out to the repo's root,
+    or by name through importlib.import_module / __import__."""
+    depth = rel_path.count("/")      # packages between the root and the file
+    hits = []
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Import):
+            hits += [a.name for a in node.names
+                     if a.name == JAX_PKG or a.name.startswith(JAX_PKG + ".")]
+        elif isinstance(node, ast.ImportFrom):
+            mod = node.module or ""
+            if node.level == 0 and (mod == JAX_PKG or mod.startswith(JAX_PKG + ".")):
+                hits.append(mod)
+            elif node.level > depth:
+                hits.append("." * node.level + mod)
+        elif isinstance(node, ast.Call) and node.args:
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
+            arg = node.args[0]
+            if (name in ("import_module", "__import__") and isinstance(arg, ast.Constant)
+                    and isinstance(arg.value, str)
+                    and (arg.value == JAX_PKG or arg.value.startswith(JAX_PKG + "."))):
+                hits.append(arg.value)
+    return hits
+
+
+def test_no_source_of_the_port_imports_the_jax_package():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PORT):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    assert len(paths) >= 19
+    found = {}
+    for p in paths:
+        rel = os.path.relpath(p, REPO).replace(os.sep, "/")
+        hits = jax_package_imports(open(p).read(), rel)
+        if hits:
+            found[rel] = hits
+    assert not found, found
+
+
+def test_the_import_scan_sees_every_form():
+    src = ("import pointcloud_segmentation_tpu.config\n"
+           "from pointcloud_segmentation_tpu import sphere\n"
+           "from .. import sphere as s2\n"
+           "from . import voting\n"
+           "import pointcloud_segmentation_tpu_torch.config\n"
+           "def f():\n"
+           "    import importlib\n"
+           "    return importlib.import_module('pointcloud_segmentation_tpu.io')\n")
+    hits = jax_package_imports(src, "pointcloud_segmentation_tpu_torch/ops/x.py")
+    assert hits == ["pointcloud_segmentation_tpu.config", "pointcloud_segmentation_tpu",
+                    "pointcloud_segmentation_tpu.io"], hits
+    hits = jax_package_imports(src, "pointcloud_segmentation_tpu_torch/x.py")
+    assert ".." in hits
+
+
+# ----------------------------------------------------------------- parity
+
+CONFIG_FIELDS = ("num_x_max", "voting_mode", "leaf_size", "opt_dx", "diag_voxel",
+                 "max_lines", "num_directions")
+
+
+def _same_config(tc, jc):
+    for f in CONFIG_FIELDS:
+        assert getattr(tc, f) == getattr(jc, f), f
+    assert dataclasses.asdict(tc.shapes) == dataclasses.asdict(jc.shapes)
+    for f in dataclasses.fields(tc):
+        if f.name != "shapes":
+            assert getattr(tc, f.name) == getattr(jc, f.name), f.name
+
+
+def _config_default():
+    _same_config(TC.default_config(), JC.default_config())
+    assert TC.NUM_DIRECTIONS == JC.NUM_DIRECTIONS
+
+
+def _config_yaml(tmp_path):
+    path = os.path.join(REPO, "configs", "config.yaml")
+    _same_config(TC.PipelineConfig.from_yaml(path), JC.PipelineConfig.from_yaml(path))
+    _same_config(TC.PipelineConfig.from_yaml(path, granularity=3),
+                 JC.PipelineConfig.from_yaml(path, granularity=3))
+    changed = str(tmp_path / "changed.yaml")
+    with open(changed, "w") as f:
+        f.write("granularity: 2\nradius_sizes: [0.015, 0.05]\nopt_nlines: 3\n"
+                "rad_2_leaf_ratio: 1.5\nunknown_key: 1\n")
+    _same_config(TC.PipelineConfig.from_yaml(changed), JC.PipelineConfig.from_yaml(changed))
+
+
+def _config_grid():
+    for radius in ((0.015,), (0.03, 0.05), (0.05,), (0.1,), (0.2, 0.05)):
+        for g in range(7):
+            for ratio in (1.0, 1.5, 2.0):
+                kw = dict(radius_sizes=radius, granularity=g, rad_2_leaf_ratio=ratio,
+                          opt_nlines=g - 1)
+                _same_config(TC.default_config(**kw), JC.default_config(**kw))
+    shapes = dict(max_raw_points=2048, max_points=1024, max_world_segments=32, max_iters=7)
+    _same_config(TC.default_config(shapes=TC.StaticShapes(**shapes), voting="carry"),
+                 JC.default_config(shapes=JC.StaticShapes(**shapes), voting="carry"))
+
+
+def _hough_space():
+    for g in range(7):
+        for t, j in zip(TS.hough_space(g), JS.hough_space(g)):
+            assert t.dtype == j.dtype and t.shape == j.shape
+            assert t.tobytes() == j.tobytes(), g
+
+
+def _quat_to_rot():
+    rng = np.random.default_rng(3)
+    q = rng.normal(size=(64, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    for row in q:
+        assert np.array_equal(np.array(TG.quat_to_rot(*row)), np.array(JG.quat_to_rot(*row)))
+
+
+def _simulate_trajectory():
+    assert TSC.OBS_TESTS_SCENE == tuple(
+        TSC.Cylinder(c.center, c.axis, c.radius, c.height) for c in JSC.OBS_TESTS_SCENE)
+    assert TSC.WP_TESTS == JSC.WP_TESTS
+    poses_t = TSC.trajectory_poses(TSC.WP_TESTS, hz=2.0, velocity=0.25)
+    poses_j = JSC.trajectory_poses(JSC.WP_TESTS, hz=2.0, velocity=0.25)
+    assert len(poses_t) == len(poses_j) == 31
+    for (tt, pt, qt), (tj, pj, qj) in zip(poses_t, poses_j):
+        assert tt == tj and np.array_equal(pt, pj) and np.array_equal(qt, qj)
+    spec_t = TSIM.TofSpec(width=32, height=24, noise_frac=0.002)
+    spec_j = JSIM.TofSpec(width=32, height=24, noise_frac=0.002)
+    ft = TSIM.simulate_trajectory(TSC.OBS_TESTS_SCENE, poses_t[::6], spec_t, seed=5)
+    fj = JSIM.simulate_trajectory(JSC.OBS_TESTS_SCENE, poses_j[::6], spec_j, seed=5)
+    assert len(ft) == len(fj) == 6
+    for a, b in zip(ft, fj):
+        assert a.t == b.t
+        for f in ("position", "quat_wxyz", "points"):
+            assert getattr(a, f).tobytes() == getattr(b, f).tobytes(), f
+
+
+def _pose_buffer():
+    rng = np.random.default_rng(8)
+    pt, pj = TPoseBuffer(capacity=16), JPoseBuffer(capacity=16)
+    for t in rng.permutation(20) * 0.5:
+        pos, q = rng.normal(size=3), rng.normal(size=4)
+        pt.push(t, pos, q)
+        pj.push(t, pos, q)
+    assert len(pt) == len(pj) == 16
+    for t in np.concatenate([rng.uniform(-2.0, 12.0, 200), [2.0, 9.5, 10.5, 11.0]]):
+        a, b = pt.lookup(t), pj.lookup(t)
+        assert (a is None) == (b is None), t
+        if a is not None:
+            assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]), t
+
+
+def _csv_writers(tmp_path):
+    rng = np.random.default_rng(4)
+    segs = [{"a": rng.normal(size=3) * 10 ** k, "b": rng.normal(size=3),
+             "t_min": float(rng.normal()), "t_max": float(rng.normal() * 1e6)}
+            for k in range(-3, 4)]
+    rows = [(i, float(rng.normal()), j, float(rng.normal() * 1e-7))
+            for i in range(4) for j in range(i)]
+    recs = [{"wall_time": float(rng.uniform(0, 1e7)), "processing_time": float(rng.uniform(0, 1e5)),
+             "seg_vec_size": int(rng.integers(0, 64)), "nblines": int(rng.integers(0, 10))}
+            for _ in range(5)]
+    for writer in ("write_segments_csv", "write_intersections_csv", "write_processing_time_csv"):
+        data = {"write_segments_csv": segs, "write_intersections_csv": rows,
+                "write_processing_time_csv": recs}[writer]
+        pa, pb = str(tmp_path / "t.csv"), str(tmp_path / "j.csv")
+        getattr(TCSV, writer)(pa, data)
+        getattr(JCSV, writer)(pb, data)
+        with open(pa, "rb") as fa, open(pb, "rb") as fb:
+            assert fa.read() == fb.read(), writer
+    TCSV.write_segments_csv(pa, segs)
+    assert TCSV.read_segments_csv(pa) == JCSV.read_segments_csv(pa)
+    assert TCSV.fmt_double(5123456.0) == JCSV.fmt_double(5123456.0) == "5.12346e+06"
+
+
+def _intersection_pairs():
+    rng = np.random.default_rng(6)
+    for n in (0, 1, 5, 12):
+        inter = rng.normal(size=(12, 12, 2)).astype(np.float32)
+        inter[rng.random((12, 12)) < 0.4] = -1.0
+        inter[0, :, 0] = -1.0            # one -1 of the two skips the pair too
+        assert intersection_pairs(inter, n) == JaxEngine._intersection_pairs(inter, n)
+
+
+PARITY = {
+    "config_default": _config_default, "config_yaml": _config_yaml,
+    "config_grid": _config_grid, "hough_space": _hough_space,
+    "quat_to_rot": _quat_to_rot, "simulate_trajectory": _simulate_trajectory,
+    "pose_buffer_lookup": _pose_buffer, "csv_writers": _csv_writers,
+    "intersection_pairs": _intersection_pairs,
+}
+
+
+@pytest.mark.parametrize("case", sorted(PARITY))
+def test_copy_matches_the_original(case, tmp_path):
+    fn = PARITY[case]
+    fn(tmp_path) if fn.__code__.co_argcount else fn()

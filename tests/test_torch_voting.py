@@ -25,7 +25,7 @@ torch.set_num_threads(2)
 DX = np.float32(default_config().opt_dx)
 
 
-def problem(seed, n, granularity, rows=None, extent=1.2, active_frac=0.8):
+def problem(seed, n, granularity, rows=None, extent=1.2, active_frac=0.8, dx=DX):
     """Shifted cloud + direction rows + (d, dx, num_x), as numpy."""
     rng = np.random.default_rng(seed)
     pts = rng.uniform(-extent, extent, (n, 3)).astype(np.float32)
@@ -37,21 +37,21 @@ def problem(seed, n, granularity, rows=None, extent=1.2, active_frac=0.8):
         c1, c2 = c1[sel], c2[sel]
     g = pts.max(0) - pts.min(0)
     d = np.float32(np.sqrt((g[0] * g[0] + g[1] * g[1]) + g[2] * g[2]))
-    num_x = np.int32(max(np.floor(d / DX + np.float32(0.5)), 1))
+    num_x = np.int32(max(np.floor(d / dx + np.float32(0.5)), 1))
     active = rng.random(n) < active_frac
     return pts, active, c1, c2, d, num_x
 
 
-def to_torch(pts, active, c1, c2, d, num_x):
+def to_torch(pts, active, c1, c2, d, num_x, dx=DX):
     return (torch.from_numpy(pts), torch.from_numpy(active),
             torch.from_numpy(c1), torch.from_numpy(c2),
-            torch.tensor(d / np.float32(2.0)), torch.tensor(DX),
+            torch.tensor(d / np.float32(2.0)), torch.tensor(np.float32(dx)),
             torch.tensor(num_x))
 
 
-def to_jax(pts, active, c1, c2, d, num_x):
+def to_jax(pts, active, c1, c2, d, num_x, dx=DX):
     return (jnp.asarray(pts), jnp.asarray(active), jnp.asarray(c1),
-            jnp.asarray(c2), jnp.float32(d), jnp.float32(DX), jnp.int32(num_x))
+            jnp.asarray(c2), jnp.float32(d), jnp.float32(dx), jnp.int32(num_x))
 
 
 @pytest.mark.parametrize("granularity,rows", [(2, None), (6, 512)])
@@ -153,16 +153,54 @@ def test_removed_cell_keys_match_xla():
     assert (kj[:, n_rem:] == NX * NX).all()
 
 
-@pytest.mark.parametrize("nxs,fits", [(79, True), (241, True), (242, False)])
+@pytest.mark.parametrize("granularity", [2, 6])
+def test_plain_matches_jax_at_nx_261(granularity):
+    """radius_sizes=(0.015,) gives NX 261, the largest grid a shipped
+    option reaches; a 2.4 m cloud spans ~140 of its bins."""
+    cfg = default_config(granularity=granularity, radius_sizes=(0.015,))
+    NX, dx = cfg.num_x_max, np.float32(cfg.opt_dx)
+    assert NX == 261
+    p = problem(13, 700, granularity, rows=None if granularity == 2 else 256, dx=dx)
+    X, a, c1, c2, half, dxt, nx = to_torch(*p, dx=dx)
+    Xj, aj, c1j, c2j, dj, dxj, nxj = to_jax(*p, dx=dx)
+    assert 100 < int(nx) <= NX
+    _, c1p, c2p = H._pad_dirs_to_tile(c1j, c1j, c2j)
+    c1t, c2t = torch.tensor(np.asarray(c1p)), torch.tensor(np.asarray(c2p))
+    bj, kj, uj = H._vote_state_tiles(Xj, c1p, c2p, dj, dxj, nxj, aj, NX)
+    best, key, ub = V.vote_state_plain(X, a, c1t, c2t, half, dxt, nx, NX)
+    np.testing.assert_array_equal(best.numpy(), np.asarray(bj))
+    np.testing.assert_array_equal(key.numpy(), np.asarray(kj))
+    np.testing.assert_array_equal(ub.numpy(), np.asarray(uj))
+    hj = np.asarray(H._vote_histogram(Xj, c1p[:128], c2p[:128], dj, dxj, nxj, aj, NX))
+    ht = V.vote_histogram_plain(X, a, c1t[:128], c2t[:128], half, dxt, nx, NX)
+    assert ht.shape == (128, NX, NX)
+    np.testing.assert_array_equal(ht.numpy().astype(np.float32), hj)
+
+
+@pytest.mark.parametrize("nxs,fits", [(79, True), (241, True), (261, True),
+                                      (V.MAX_NX, True), (V.MAX_NX + 1, False)])
 def test_shared_memory_bound(nxs, fits):
-    """A num_x_static whose int32 histogram exceeds one block's 227 KB of
-    shared memory is refused before any launch."""
+    """A num_x_static whose packed 16-bit histogram, beside a 256-point
+    staging chunk, exceeds one block's 227 KB of shared memory is refused
+    before any launch; 337 is the largest that fits."""
+    assert V.MAX_NX == 337
     X, a, c1, c2, half, dx, nx = to_torch(*problem(0, 8, 0))
     if fits:
         V._check_cuda_args(X, a, c1, c2, half, dx, nx, nxs)
     else:
-        with pytest.raises(ValueError, match="shared memory"):
+        with pytest.raises(ValueError, match="shared memory.*the largest is 337"):
             V._check_cuda_args(X, a, c1, c2, half, dx, nx, nxs)
+
+
+@pytest.mark.parametrize("n,fits", [(65_535, True), (65_536, False)])
+def test_point_count_bound(n, fits):
+    """Counts are 16 bits in the kernels, so N must stay below 65,536."""
+    X, a, c1, c2, half, dx, nx = to_torch(*problem(0, n, 0))
+    if fits:
+        V._check_cuda_args(X, a, c1, c2, half, dx, nx, 79)
+    else:
+        with pytest.raises(ValueError, match="65,536"):
+            V._check_cuda_args(X, a, c1, c2, half, dx, nx, 79)
 
 
 def test_kernel_checks_refuse_bad_inputs():
