@@ -1,7 +1,12 @@
 """Smoke run of the PyTorch port on one CUDA card: builds the voting kernels,
 holds each against its plain PyTorch version at every shape the main path
 gives it (NX 79 and NX 261) and at edge cases, drives the replay main path,
-checks what comes out, and times the kernels beside their bounds.
+checks what comes out, and times the kernels beside their bounds.  Then it
+drives the live node loop at the shipped config on the card: a lockstep
+stream through the worker, paced and unpaced streams of a recorded log, the
+TCP server, the CLI in subprocesses, and a checkpoint resume, each held to
+the synchronous replay or to its own accounting, and each counting its
+vote_state launches.
 
     python3 chip_smoke.py [--earlier path/to/an/earlier/voting.cu]
 
@@ -18,8 +23,11 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import os
 import statistics
 import subprocess
+import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -33,6 +41,14 @@ PEAK_BYTES_PER_S = 3.35e12
 # lane instructions a second: 128 lanes a clock on each of 132 SMs at
 # 1.98 GHz, half the float32 peak, since that counts an FMA as two
 PEAK_LANE_INSTRUCTIONS = PEAK_F32_FLOPS / 2
+REPO = Path(__file__).resolve().parent
+# keys of a viz-stream record of the JAX engine (runtime/engine.py
+# _emit_viz_frame), without point clouds
+VIZ_KEYS = {"frame", "t", "nlines", "status", "world_count", "cylinders",
+            "intersections", "drone"}
+CSV_HEADERS = {"segments.csv": "segment,a_x,a_y,a_z,b_x,b_y,b_z,t_min,t_max",
+               "intersections.csv": "seg1,t1,seg2,t2",
+               "processing_time.csv": "wall_time,processing_time,seg_vec_size,nblines"}
 # instructions one point needs in one direction with no product+sum
 # contraction (the bins must equal the plain float32 bins): per bin three
 # products, three sums, the quotient (a product and four FMAs), a floor, a
@@ -427,16 +443,22 @@ def same_extraction(run, ref, label):
     check(worst <= 5e-3, f"{label}: endpoints within 5e-3 (worst {worst:.3g})")
 
 
-def counted_run(label, cfg, frames, dev, name):
-    """One path of the main path, its kernel's launch count set to 0 just
-    before and read just after; returns (run, launches)."""
+def counted_voting():
+    """Voting functions that count their calls, with every launch count set
+    to 0: call just before a path is driven, and `launches_of` just after."""
     from pointcloud_segmentation_tpu_torch.ops import voting as V
     from pointcloud_segmentation_tpu_torch.ops.hough import Voting
 
-    voting = Voting(Counted(V.vote_state), Counted(V.vote_histogram))
     V.vote_state.launches = 0
     V.vote_histogram.launches = 0
-    run = replay(cfg, frames, dev, voting)
+    return Voting(Counted(V.vote_state), Counted(V.vote_histogram))
+
+
+def launches_of(label, voting, name="vote_state") -> int:
+    """The launches of `name`'s kernel since counted_voting(); fails unless
+    the path launched it, and launched it on every call."""
+    from pointcloud_segmentation_tpu_torch.ops import voting as V
+
     launches = {"vote_state": V.vote_state.launches,
                 "vote_histogram": V.vote_histogram.launches}
     shapes = dict(sorted(getattr(voting, name).shapes.items(), key=str))
@@ -445,7 +467,234 @@ def counted_run(label, cfg, frames, dev, name):
     check(launches[name] > 0, f"{label} launched {name} {launches[name]} times")
     check(launches[name] == sum(shapes.values()),
           f"{label}: every {name} call of the path launched the kernel")
-    return run, launches[name]
+    return launches[name]
+
+
+def counted_run(label, cfg, frames, dev, name):
+    """One path of the main path, its kernel's launch count set to 0 just
+    before and read just after; returns (run, launches)."""
+    voting = counted_voting()
+    run = replay(cfg, frames, dev, voting)
+    return run, launches_of(label, voting, name)
+
+
+def same_state(a, b) -> bool:
+    return all(np.array_equal(a[f], b[f], equal_nan=True) for f in a)
+
+
+def no_sentinels(records) -> bool:
+    return all(r["seg_vec_size"] >= 0 and r["nblines"] >= 0 for r in records)
+
+
+def lockstep_stream(cfg, frames, ref, tmp, card):
+    """The recorded replay through the streaming worker, one frame at a
+    time (drain after each submit): nothing may drop, and the world state
+    must equal the synchronous replay's bit for bit.  Returns the log."""
+    from pointcloud_segmentation_tpu_torch import SegmentationEngine
+    from pointcloud_segmentation_tpu_torch.convert import world_state_to_numpy
+    from pointcloud_segmentation_tpu_torch.io.replay import load_frames, save_frames
+
+    log = os.path.join(tmp, "replay.pcsl")
+    save_frames(log, frames)
+    back = load_frames(log)
+    check(len(back) == len(frames) and all(
+        a.t == b.t and a.points.tobytes() == b.points.tobytes()
+        and a.position.tobytes() == b.position.tobytes()
+        and a.quat_wxyz.tobytes() == b.quat_wxyz.tobytes() for a, b in zip(back, frames)),
+        f"the replay written to a .pcsl log and read back: {len(back)} frames, bit-equal")
+    viz = os.path.join(tmp, "lockstep_viz.jsonl")
+    voting = counted_voting()
+    eng = SegmentationEngine(cfg, voting=voting, viz_stream=viz)
+    eng.start()
+    t0 = time.perf_counter()
+    try:
+        for i, fr in enumerate(back):
+            eng.push_pose(fr.t, fr.position, fr.quat_wxyz)
+            eng.submit_cloud(fr.t, fr.points)
+            # drain wakes when the worker finishes the frame; it does not poll
+            if not eng.drain(target_total=i + 1, timeout=120.0):
+                fail(f"lockstep stream: frame {i} not accounted for in 120 s")
+    finally:
+        wall = time.perf_counter() - t0
+        eng.stop()
+    launches_of("lockstep stream", voting)
+    eng.finalize(os.path.join(tmp, "lockstep"))
+    n = len(frames)
+    check((eng.frames_processed, eng.dropped_frames, eng.frames_failed,
+           eng.frames_skipped_no_pose) == (n, 0, 0, 0),
+          f"lockstep stream: {eng.frames_processed} processed, {eng.dropped_frames} dropped, "
+          f"{eng.frames_failed} failed, {eng.frames_skipped_no_pose} skipped")
+    check(no_sentinels(eng.records), "lockstep stream: no record holds -1")
+    check([(r["seg_vec_size"], r["nblines"]) for r in eng.records]
+          == [(r["seg_vec_size"], r["nblines"]) for r in ref["records"]],
+          "lockstep stream: per-frame world count and nlines equal the g6 replay's")
+    check(same_state(world_state_to_numpy(eng.state), ref["state"]),
+          "lockstep stream: world state bit-identical to the synchronous g6 replay")
+    with open(viz) as f:
+        recs = [json.loads(line) for line in f]
+    check(len(recs) == n and [r["frame"] for r in recs] == list(range(1, n + 1))
+          and all(set(r) == VIZ_KEYS for r in recs)
+          and all(len(r["cylinders"]) == r["world_count"] for r in recs),
+          f"lockstep stream: {len(recs)} viz records, one per frame, with the JAX "
+          f"record's keys")
+    print(f"time  lockstep stream, {n} frames: {eng.frames_processed / wall:.3f} processed "
+          f"frames/s, the worker's sustained rate, from the first submit to the last "
+          f"drain ({wall:.3f} s), median "
+          f"processing_time {statistics.median(r['processing_time'] for r in eng.records) / 1e3:.3f}"
+          f" ms [{card}]", flush=True)
+    return log
+
+
+def paced_streams(cfg, log, n, card):
+    """run_streaming_from_log at the CLI's default 30 Hz, then unpaced.  Each
+    count is its own counter (dropped is the mailbox's), so a frame lost
+    between them, or a drain that timed out, fails the run."""
+    from pointcloud_segmentation_tpu_torch import SegmentationEngine
+    from pointcloud_segmentation_tpu_torch.convert import world_state_to_numpy
+
+    for rate in (30.0, 0.0):
+        label = f"stream at {rate:g} Hz" if rate else "unpaced stream"
+        voting = counted_voting()
+        eng = SegmentationEngine(cfg, voting=voting)
+        s = eng.run_streaming_from_log(log, rate_hz=rate)
+        launches_of(label, voting)
+        check(s["drained"] is True, f"{label}: every frame accounted for before stop "
+              f"(drain {s['drain_s']} s)")
+        check(s["fed"] == n and s["fed"] == s["processed"] + s["dropped"] + s["skipped"]
+              + s["failed"] and s["dropped"] == eng.dropped_frames,
+              f"{label}: fed {s['fed']} = {s['processed']} processed + {s['dropped']} "
+              f"dropped by the mailbox + {s['skipped']} skipped + {s['failed']} failed")
+        check(s["failed"] == 0 and s["processed"] >= 1 and no_sentinels(eng.records),
+              f"{label}: none failed, no record holds -1")
+        state = world_state_to_numpy(eng.state)
+        check(all(np.isfinite(state[f]).all() for f in ("a", "b", "t_min", "t_max")),
+              f"{label}: world state finite ({int(state['count'])} segments)")
+        median = statistics.median(r['processing_time'] for r in eng.records) / 1e3
+        if rate:
+            wall = s["feed_s"] + s["drain_s"]
+            print(f"time  {label}, {n} frames: dropped share {s['dropped'] / s['fed']:.3f}, "
+                  f"{s['processed']} processed in feed_s + drain_s ({s['feed_s']} + "
+                  f"{s['drain_s']} s, {s['processed'] / wall:.3f} frames/s), median "
+                  f"processing_time {median:.3f} ms [{card}]", flush=True)
+        else:
+            # the feed ends before the worker wakes, so this times one frame
+            print(f"time  {label}, {n} frames: {s['processed']} processed, dropped share "
+                  f"{s['dropped'] / s['fed']:.3f}, latency of the last frame after the "
+                  f"feed (drain_s) {s['drain_s']} s, median processing_time {median:.3f} ms "
+                  f"[{card}]", flush=True)
+
+
+def serve_phase(cfg, frames, tmp):
+    """The TCP server on the card engine: a client streams the replay at
+    30 Hz and queries; the served snapshot equals the engine's."""
+    from pointcloud_segmentation_tpu_torch import SegmentationEngine
+    from pointcloud_segmentation_tpu_torch.runtime.csvio import read_segments_csv
+    from pointcloud_segmentation_tpu_torch.runtime.server import (
+        SegmentationClient, SegmentationServer)
+
+    voting = counted_voting()
+    eng = SegmentationEngine(cfg, voting=voting)
+    srv = SegmentationServer(eng, host="127.0.0.1", port=0,
+                             outdir=os.path.join(tmp, "serve")).start()
+    try:
+        cli = SegmentationClient(srv.host, srv.port, timeout=120.0)
+        for fr in frames:
+            cli.send_frame(fr.t, fr.position, fr.quat_wxyz, fr.points)
+            time.sleep(1 / 30)
+        deadline = time.monotonic() + 120.0
+        while True:
+            snap = cli.query()
+            done = (snap["frames_processed"] + snap["frames_dropped"]
+                    + snap["frames_skipped_no_pose"] + eng.frames_failed)
+            if done >= len(frames) or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        segs, inter = eng.world_snapshot()
+        served = [(s["a"], s["b"], s["t_min"], s["t_max"], s["radius"], s["points_size"],
+                   s["pca_coeff"]) for s in snap["world_segments"]]
+        local = [([float(v) for v in s["a"]], [float(v) for v in s["b"]], s["t_min"],
+                  s["t_max"], s["radius"], s["points_size"], s["pca_coeff"]) for s in segs]
+        check(served == local and [tuple(r) for r in snap["intersections"]] == inter,
+              f"serve: the snapshot's {len(served)} world segments and {len(inter)} "
+              f"intersections equal engine.world_snapshot()")
+        check(done == len(frames) and eng.frames_failed == 0,
+              f"serve: {len(frames)} frames = {snap['frames_processed']} processed + "
+              f"{snap['frames_dropped']} dropped + {snap['frames_skipped_no_pose']} skipped, "
+              f"none failed")
+        out = cli.finalize()
+        cli.close()
+    finally:
+        srv.stop()
+    launches_of("serve", voting)
+    check(out.get("drained") is True, "serve: finalize drained")
+    for name, path in (("segments.csv", out["outputs"]["segments"]),
+                       ("intersections.csv", out["outputs"]["intersections"]),
+                       ("processing_time.csv", out["outputs"]["processing_time"])):
+        with open(path) as f:
+            check(f.readline().strip() == CSV_HEADERS[name], f"serve: {name} has the reference header")
+    rows = read_segments_csv(out["outputs"]["segments"])
+    check(len(rows) == len(eng.world_segments()) == len(segs),
+          f"serve: segments.csv has {len(rows)} rows, as many as the final snapshot")
+
+
+def cli_phase(tmp):
+    """The CLI in subprocesses with the default device: run + eval + timing,
+    record + stream."""
+    def cli(*args):
+        cmd = [sys.executable, "-m", "pointcloud_segmentation_tpu_torch", *args]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+        label = " ".join(args[:1])
+        if out.returncode != 0:
+            fail(f"cli {label} exited {out.returncode}:\n{out.stdout}\n{out.stderr}")
+        check(True, f"cli {label} exited 0 in {time.perf_counter() - t0:.1f} s")
+        return out.stdout
+
+    def headers(outdir, label):
+        for name, header in CSV_HEADERS.items():
+            with open(os.path.join(outdir, name)) as f:
+                check(f.readline().strip() == header, f"cli {label}: {name} has the reference header")
+
+    run_out = os.path.join(tmp, "cli_run")
+    text = cli("run", "--max-frames", "12", "--out", run_out)
+    print("      " + text.splitlines()[0], flush=True)
+    headers(run_out, "run")
+    rep = json.loads(cli("eval", os.path.join(run_out, "segments.csv")))
+    check(rep["n_truth_matched"] >= 1,
+          f"cli eval: {rep['n_truth_matched']} of {rep['n_truth']} beams matched")
+    summ = json.loads(cli("timing", os.path.join(run_out, "processing_time.csv")))
+    check(summ["n_frames"] == 12, f"cli timing: {summ['n_frames']} frames")
+    log = os.path.join(tmp, "cli.pcsl")
+    cli("record", log, "--max-frames", "31")
+    stream_out = os.path.join(tmp, "cli_stream")
+    text = cli("stream", log, "--rate", "30", "--out", stream_out)
+    print("      " + text.splitlines()[0], flush=True)
+    headers(stream_out, "stream")
+
+
+def checkpoint_phase(cfg, frames, ref, tmp):
+    """Save after frame 15, load into a fresh engine, run the rest: the world
+    state must equal the straight replay's bit for bit."""
+    from pointcloud_segmentation_tpu_torch import SegmentationEngine
+    from pointcloud_segmentation_tpu_torch.convert import world_state_to_numpy
+
+    ckpt = os.path.join(tmp, "state.npz")
+    voting = counted_voting()
+    first = SegmentationEngine(cfg, voting=voting)
+    first.run_replay(frames[:15])
+    launches_of("checkpoint, frames 1-15", voting)
+    first.save_checkpoint(ckpt)
+    voting = counted_voting()
+    resumed = SegmentationEngine(cfg, voting=voting)
+    resumed.load_checkpoint(ckpt)
+    resumed.run_replay(frames[15:])
+    launches_of("checkpoint resume", voting)
+    check(resumed.frames_processed == len(frames) and len(resumed.records) == len(frames),
+          f"checkpoint: resumed at 15, {resumed.frames_processed} frames, "
+          f"{len(resumed.records)} records")
+    check(same_state(world_state_to_numpy(resumed.state), ref["state"]),
+          "checkpoint: resume after frame 15 gives a world state bit-identical to "
+          "the straight g6 replay")
 
 
 def main() -> None:
@@ -520,9 +769,8 @@ def main() -> None:
     same_extraction(k6s, p6s, "g6 radius 0.015 kernels vs plain on the card")
 
     k6b = replay(cfg6, frames, dev, KERNELS)
-    same = all(np.array_equal(k6["state"][f], k6b["state"][f], equal_nan=True)
-               for f in k6["state"])
-    check(same, "g6 replay run twice: bit-identical world state (deterministic)")
+    check(same_state(k6["state"], k6b["state"]),
+          "g6 replay run twice: bit-identical world state (deterministic)")
 
     def ms_per_frame(run):
         return statistics.median(r["processing_time"] for r in run["records"]) / 1e3
@@ -552,6 +800,15 @@ def main() -> None:
                                           "plain_ms", "library_ms", "bound_ms", "bound_by",
                                           "earlier_ms")}
                        for r in shapes]})
+
+    # the live node loop at the shipped config, on the default device
+    with tempfile.TemporaryDirectory(prefix="pcs_chip_smoke_") as tmp:
+        log = lockstep_stream(cfg6, frames, k6, tmp, card)
+        paced_streams(cfg6, log, len(frames), card)
+        serve_phase(cfg6, frames, tmp)
+        cli_phase(tmp)
+        checkpoint_phase(cfg6, frames, k6, tmp)
+
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

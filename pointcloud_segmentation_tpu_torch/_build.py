@@ -3,17 +3,20 @@
 The library has a plain C interface (no PyTorch headers), so nvcc builds it
 in seconds.  It is built at first use into ``build/torch_kernels/`` beside the
 package, keyed by a hash of the source and the flags, so an unchanged source
-is built once per checkout.  Nothing here runs at import time.
+is built once per checkout.  Nothing here runs at import time.  One lock
+serialises the build and the load, so two threads that launch a kernel at
+once build it once (the engine loads it in its constructor, on the caller's
+thread, before a streaming worker starts).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -67,11 +70,22 @@ def _library_path(source: Path) -> Path:
     return BUILD_DIR / f"libpcs_voting_{h.hexdigest()[:16]}.so"
 
 
-@functools.lru_cache(maxsize=None)
+_lock = threading.Lock()
+_loaded: dict = {}       # source path -> its loaded library, for the process
+
+
 def load_library(source: Path = _SOURCE) -> ctypes.CDLL:
     """Build (if needed) and load the voting library; raises on failure.
     `source` may name another copy of ``voting.cu`` with the same C entries,
     such as an earlier version to time beside this one."""
+    with _lock:
+        lib = _loaded.get(source)
+        if lib is None:
+            lib = _loaded[source] = _build_and_load(source)
+        return lib
+
+
+def _build_and_load(source: Path) -> ctypes.CDLL:
     path = _library_path(source)
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

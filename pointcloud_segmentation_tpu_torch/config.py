@@ -24,6 +24,9 @@ NUM_DIRECTIONS = (12, 21, 81, 321, 1281, 5121, 20481)
 # (reference: node.cpp:25 `WINDOW_FILTERING_SIZE`).
 WINDOW_FILTERING_SIZE = 3.0
 
+# verbose_level values of the reference node (node.cpp:309-346)
+VERBOSE_NONE, VERBOSE_INFO, VERBOSE_WARN = 0, 1, 2
+
 _YAML_KEYS = ("verbose_level", "path_to_output", "floor_trim_height",
               "min_pca_coeff", "min_weight", "rad_2_leaf_ratio",
               "opt_minvotes", "granularity", "opt_nlines")
@@ -155,6 +158,13 @@ class PipelineConfig:
             kw["radius_sizes"] = tuple(float(r) for r in raw["radius_sizes"])
         kw.update(overrides)
         return cls(**kw)
+
+    def to_dict(self) -> dict:
+        """The reference's YAML keys and their values (the engine logs them
+        at startup, as the node does, node.cpp:245-257)."""
+        out = {key: getattr(self, key) for key in _YAML_KEYS}
+        out["radius_sizes"] = list(self.radius_sizes)
+        return out
 
 
 def default_config(**overrides) -> PipelineConfig:

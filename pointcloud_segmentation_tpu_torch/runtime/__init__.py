@@ -1,3 +1,4 @@
 from .engine import SegmentationEngine
+from .mailbox import LatestWinsMailbox
 
-__all__ = ["SegmentationEngine"]
+__all__ = ["SegmentationEngine", "LatestWinsMailbox"]

@@ -1,28 +1,58 @@
-"""Host runtime around the PyTorch pipeline: synchronous replay.
+"""Host runtime around the PyTorch pipeline: the node shell.
 
-Twin of the JAX package's runtime/engine.py for its synchronous path: a pose
-stream in, ToF clouds in, the persistent world map on the device, one timing
-record per frame, and the three reference CSVs on `finalize`.  The device is
-named by the caller and never guessed: "cuda" without a CUDA device raises,
-so nothing carries on on the CPU unnoticed.
+Twin of the JAX package's runtime/engine.py: a pose stream in (the tfbr
+node's mocap->world broadcast), ToF clouds in, the persistent world map on
+the device, one timing record per frame, and the three reference CSVs on
+`finalize` (node.cpp:78-80).  Two ingestion modes:
+  * synchronous replay, `process_frame` / `run_replay`: every frame is
+    processed (deterministic; tests, evaluation);
+  * streaming, `start` / `submit_cloud` / `drain` / `stop`: a worker thread
+    consumes a latest-wins depth-1 mailbox and drops stale frames under
+    load, as the reference's SharedData slot does (node.cpp:167-173,
+    267-276).
+
+The device defaults to "cuda" and is never guessed: "cuda" without a CUDA
+device raises, so nothing carries on on the CPU unnoticed.  The CPU runs
+only when the caller asks for it (``device="cpu"``), with the plain PyTorch
+versions of the kernels.
+
+Every frame of the streaming worker reads its four scalars (world count,
+nlines, status, overflow) once, as the synchronous path does.  The Hough
+loop has read the host in every round by then (ops/hough.py), so the frame
+has already synchronised and a deferred read would save one 16-byte copy:
+the JAX engine's deferred flusher is not ported, and no streaming record
+holds a -1.
 """
 
 from __future__ import annotations
 
+import contextlib
+import json
+import logging
 import os
+import threading
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..config import PipelineConfig
-from ..convert import load_jax_checkpoint, world_state_from_numpy
+from .. import _build
+from ..config import VERBOSE_INFO, VERBOSE_NONE, PipelineConfig
+from ..convert import (read_checkpoint, world_state_from_numpy,
+                       world_state_to_numpy, write_checkpoint)
+from ..geometry import quat_to_rot
 from ..ops.hough import KERNELS, Voting, direction_tables
 from ..pipeline import process_frame
 from ..worldmap import init_world
 from . import csvio
+from .mailbox import LatestWinsMailbox
 from .posebuffer import PoseBuffer
+
+logger = logging.getLogger("pointcloud_segmentation_tpu_torch")
+
+# points a viz record carries at most in each point cloud
+_VIZ_POINTS_CAP = 4096
 
 
 def intersection_pairs(inter: np.ndarray, n: int) -> List[tuple]:
@@ -38,12 +68,85 @@ def intersection_pairs(inter: np.ndarray, n: int) -> List[tuple]:
     return rows
 
 
+def _waterfill_quotas(lens, cap):
+    """Waterfill a total point budget across per-slot lengths, favoring no
+    slot.  Every non-empty slot gets an equal share; shares a short slot
+    can't use are redistributed to longer ones, so the cap is met exactly
+    whenever sum(lens) >= cap and no slot is starved."""
+    quota = [0] * len(lens)
+    remaining = min(cap, sum(lens))
+    active = [i for i, n in enumerate(lens) if n > 0]
+    while remaining > 0 and active:
+        share = max(remaining // len(active), 1)
+        still = []
+        for i in active:
+            take = min(share, lens[i] - quota[i], remaining)
+            quota[i] += take
+            remaining -= take
+            if quota[i] < lens[i]:
+                still.append(i)
+            if remaining <= 0:
+                break
+        active = still
+    return quota
+
+
+def _tail_points(chunks, q):
+    """Newest `q` points from a slot's chunk list (per-frame appended
+    arrays), touching only the tail chunks actually needed: the accumulated
+    history grows without bound over a stream, and copying it for every
+    viz record would be quadratic."""
+    out = []
+    need = q
+    for arr in reversed(chunks):
+        if need <= 0:
+            break
+        take = min(len(arr), need)
+        out.append(arr[len(arr) - take:])
+        need -= take
+    out.reverse()
+    return out[0] if len(out) == 1 else np.concatenate(out, axis=0)
+
+
+def _rotation(quat) -> np.ndarray:
+    return np.array(quat_to_rot(*np.asarray(quat, np.float64)))
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
+
+
 class SegmentationEngine:
-    def __init__(self, cfg: PipelineConfig, device, voting: Voting = KERNELS):
+    def __init__(self, cfg: PipelineConfig, device="cuda", voting: Voting = KERNELS,
+                 collect_inlier_points: bool = False,
+                 checkpoint_every: int = 0,
+                 checkpoint_path: Optional[str] = None,
+                 viz_stream: Optional[object] = None,
+                 viz_points: bool = False):
         """device: where the world map and every frame's tensors live
-        ("cuda", "cuda:1", "cpu").  voting: ops.hough.KERNELS (default) or
-        ops.hough.PLAIN, the plain PyTorch versions of the kernels, which
-        `chip_smoke.py` runs on the card to hold the kernels against."""
+        ("cuda", the default, "cuda:1", "cpu").  voting: ops.hough.KERNELS
+        (default) or ops.hough.PLAIN, the plain PyTorch versions of the
+        kernels, which `chip_smoke.py` runs on the card to hold the kernels
+        against.
+
+        checkpoint_every / checkpoint_path: save a checkpoint every this
+        many processed frames (0: never).
+
+        viz_stream: per-frame visualization feed (the RViz re-publish loop
+        analog, node.cpp:676-842).  A str/path gets one JSON line per
+        processed frame (frame counters, the drone pose and the marker
+        structures of ``visualization()``), truncated on the engine's first
+        write and appended to after a restart; a callable receives the same
+        dict instead.
+
+        viz_points: also embed the frame's world-frame point clouds in each
+        viz record: ``filtered_points`` (the `filtered_pointcloud` topic,
+        node.cpp:417-420) and ``hough_points`` (the `hough_pointcloud`
+        topic).  The reference republishes every world segment's accumulated
+        inlier points each frame (node.cpp:823-829); enable
+        ``collect_inlier_points`` too for that (the newest 4096 points of a
+        record, shared fairly across segments), else ``hough_points`` holds
+        the current frame's accepted inliers only (node.cpp:833-841)."""
         if cfg.compute_dtype != "float32":
             raise NotImplementedError("the PyTorch port runs float32 only")
         self.device = torch.device(device)
@@ -51,24 +154,72 @@ class SegmentationEngine:
             if not torch.cuda.is_available():
                 raise RuntimeError(f"device {device!r} asked for, but "
                                    "torch.cuda.is_available() is False")
+            if self.device.index is None:
+                # pinned now: another thread's current device may differ
+                self.device = torch.device("cuda", torch.cuda.current_device())
+            # built and loaded here, on the caller's thread: the first frame
+            # of a stream runs on the worker, which would otherwise run nvcc
+            _build.load_library()
             # the voxel-grid sums are a float32 matrix product (ops/preproc.py)
             torch.backends.cuda.matmul.allow_tf32 = False
         self.cfg = cfg
         self.voting = voting
         self.poses = PoseBuffer()
+        self.mailbox = LatestWinsMailbox()
         self.records: List[dict] = []
+        self.frames_submitted = 0       # clouds entered through submit_cloud
         self.frames_processed = 0
         self.frames_skipped_no_pose = 0
-        self.world_overflow_frames = 0
+        self.frames_failed = 0          # streaming frames that raised
+        self.world_overflow_frames = 0  # frames that dropped segments at
+                                        # max_world_segments capacity (D-CAP)
+        self.collect_inlier_points = collect_inlier_points
+        self.checkpoint_every = checkpoint_every
+        self.checkpoint_path = checkpoint_path
+        self._last_checkpoint_k = 0
+        self._inlier_points: dict[int, list[np.ndarray]] = {}
+        self._viz_stream = viz_stream
+        self._viz_points = viz_points
+        self._viz_file = None
+        self._viz_file_opened = False   # first open truncates, reopens append
+        # Held by each frame's step and by every reader of the world state,
+        # records and counters that a checkpoint or snapshot must see
+        # together (a server thread answering a query mid-stream).
+        self._state_lock = threading.Lock()
+        self._submit_lock = threading.Lock()
+        # notified by the worker after each frame it accounts for, so that
+        # drain() wakes at once instead of polling the worker's GIL away
+        self._progress = threading.Condition()
         self._program_start: Optional[float] = None
+        self._worker: Optional[threading.Thread] = None
+        self._running = False
+        self._dropped_before = 0        # drops of the mailboxes of past runs
+        self._atexit_registered = False
+
+        # configuration dump, as the node logs at startup (node.cpp:245-257)
+        if cfg.verbose_level > VERBOSE_NONE:
+            logger.info("Configuration: %s", json.dumps(cfg.to_dict()))
         self._tables = direction_tables(cfg.granularity, self.device)
         self._state = init_world(cfg, self.device)
+
+    def _on_device(self):
+        """Make the engine's card current for the calling thread: the kernels
+        launch on the current device, whichever thread calls them."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
 
     # ---------------------------------------------------------------- inputs
 
     def push_pose(self, t: float, position, quat_wxyz) -> None:
         """Pose stream input (the tfbr node's mocap->world broadcast)."""
         self.poses.push(t, position, quat_wxyz)
+
+    def submit_cloud(self, t: float, points: np.ndarray) -> None:
+        """Streaming input: latest-wins; stale unprocessed frames are dropped."""
+        with self._submit_lock:     # server connections submit concurrently
+            self.frames_submitted += 1
+        self.mailbox.put((t, points))
 
     # ---------------------------------------------------------------- core
 
@@ -79,6 +230,17 @@ class SegmentationEngine:
         k = min(len(pts), n_raw)
         out[:k] = pts[:k]
         return torch.from_numpy(out).to(self.device)
+
+    def _dispatch(self, points, position, quat):
+        """One frame's step on the world state; caller holds _state_lock and
+        the device.  Returns the frame's FrameOutput."""
+        dev = self.device
+        self._state, out = process_frame(
+            self._state, self._pad_raw(points),
+            torch.as_tensor(position, dtype=torch.float32).to(dev),
+            torch.as_tensor(quat, dtype=torch.float32).to(dev),
+            self.cfg, self._tables, self.voting)
+        return out
 
     def process_frame(self, t: float, points: np.ndarray) -> Optional[dict]:
         """Synchronously process one cloud.  Returns the per-frame record, or
@@ -92,31 +254,169 @@ class SegmentationEngine:
         position, quat = pose
 
         start = time.perf_counter()
-        dev = self.device
-        self._state, out = process_frame(
-            self._state, self._pad_raw(points),
-            torch.as_tensor(position, dtype=torch.float32).to(dev),
-            torch.as_tensor(quat, dtype=torch.float32).to(dev),
-            self.cfg, self._tables, self.voting)
-        # one device->host read per frame, which also waits for the frame
-        wc, nl, st, overflow = torch.stack([
-            out.world_count, out.nlines, out.status, out.overflow]).tolist()
-        end = time.perf_counter()
-
+        frame_points = None
+        with self._state_lock, self._on_device():
+            out = self._dispatch(points, position, quat)
+            # one device->host read per frame, which also waits for the frame
+            wc, nl, st, overflow = torch.stack([
+                out.world_count, out.nlines, out.status, out.overflow]).tolist()
+            if self.collect_inlier_points:
+                self._collect_points(out, position, quat)
+            if self._viz_stream is not None and self._viz_points:
+                frame_points = self._frame_points_of(out, position, quat)
+            end = time.perf_counter()
+            record = {
+                "wall_time": (end - self._program_start) * 1e6,
+                "processing_time": (end - start) * 1e6,
+                "seg_vec_size": wc,
+                "nblines": nl,
+            }
+            self.records.append(record)
+            self.frames_processed += 1
+            if overflow:
+                self.world_overflow_frames += 1
         if overflow:
-            self.world_overflow_frames += 1
-        record = {
-            "wall_time": (end - self._program_start) * 1e6,
-            "processing_time": (end - start) * 1e6,
-            "seg_vec_size": wc,
-            "nblines": nl,
-        }
-        self.records.append(record)
-        self.frames_processed += 1
+            logger.warning(
+                "world map full (max_world_segments=%d): dropped %d "
+                "segment(s) this frame (D-CAP)",
+                self.cfg.shapes.max_world_segments, overflow)
+
+        # verbose reporting, mirroring the node's levels (node.cpp:309-346)
+        if self.cfg.verbose_level > VERBOSE_NONE:
+            logger.info("Callback execution time: %d us",
+                        int(record["processing_time"]))
+        if self.cfg.verbose_level > VERBOSE_INFO:
+            segs, inter = self.world_snapshot()
+            for i, t1, j, t2 in inter:
+                logger.info("intersection_matrix[%d][%d] = (%f, %f)", i, j, t1, t2)
+            for i, s in enumerate(segs):
+                logger.info("Segment %d: a = (%f, %f, %f), t_min = %f, t_max = %f",
+                            i, s["a"][0], s["a"][1], s["a"][2],
+                            s["t_min"], s["t_max"])
+
+        if self.checkpoint_every and self.checkpoint_path:
+            k = self.frames_processed // self.checkpoint_every
+            if k > self._last_checkpoint_k:
+                self._last_checkpoint_k = k
+                self.save_checkpoint(self.checkpoint_path)
+
+        info = {"world_count": wc, "nlines": nl, "status": st}
+        if self._viz_stream is not None:
+            self._emit_viz_frame(t, info, position, quat, frame_points)
         return dict(record, status=st, t=t)
 
-    def run_replay(self, frames) -> List[dict]:
-        """Process every frame of an io.simulator replay (poses auto-pushed)."""
+    def _frame_points_of(self, out, position, quat) -> dict:
+        """World-frame per-frame clouds for the viz stream: the filtered
+        cloud and the accepted lines' inlier points (the reference's
+        `filtered_pointcloud` / `hough_pointcloud` topics)."""
+        filtered = _host(out.filtered)
+        fvalid = _host(out.filtered_valid)
+        masks = _host(out.segments.point_mask)
+        svalid = _host(out.segments.valid)
+        R = _rotation(quat)
+        pos = np.asarray(position, np.float64)
+        world = filtered[fvalid] @ R.T + pos
+        if svalid.any():
+            inl = masks[svalid].any(axis=0) & fvalid
+            hough = filtered[inl] @ R.T + pos
+        else:
+            hough = np.zeros((0, 3))
+        return {"filtered": world, "hough": hough}
+
+    def _collect_points(self, out, position, quat) -> None:
+        filtered = _host(out.filtered)
+        masks = _host(out.segments.point_mask)
+        valid = _host(out.segments.valid)
+        slots = _host(out.slots)
+        R = _rotation(quat)
+        # last writer wins per world slot: when two frame segments fuse into
+        # the same slot in one frame, the world map keeps only the later
+        # fusion, so the earlier one's points never enter the reference's
+        # accumulated store (node.cpp:823-829) — collect the winner's only
+        winner: dict[int, int] = {}
+        for i in np.nonzero(valid)[0]:
+            slot = int(slots[i])
+            if slot >= 0:
+                winner[slot] = int(i)
+        for slot, i in winner.items():
+            pts = filtered[masks[i]] @ R.T + np.asarray(position)
+            self._inlier_points.setdefault(slot, []).append(pts)
+
+    def _emit_viz_frame(self, t: float, info: dict, position, quat_wxyz,
+                        frame_points: Optional[dict]) -> None:
+        """One per-frame visualization record: the node's every-frame marker
+        re-publish (node.cpp:676-842) with the frame's drone pose, which the
+        reference's RViz session shows beside the markers
+        (rviz/drone_pc.rviz pose/path displays), and the frame's point
+        clouds (`_frame_points_of`) when given."""
+        viz = self.visualization(include_points=False)
+        rec = {
+            "frame": self.frames_processed,
+            "t": t,
+            "nlines": info["nlines"],
+            "status": info["status"],
+            "world_count": info["world_count"],
+            "cylinders": [
+                {"id": c["id"], "p1": [float(v) for v in c["p1"]],
+                 "p2": [float(v) for v in c["p2"]],
+                 "radius": float(c["radius"])}
+                for c in viz["cylinders"]],
+            "intersections": [
+                {"position": [float(v) for v in s["position"]],
+                 "text": s["text"]}
+                for s in viz["intersections"]],
+            "drone": {
+                "position": [float(v) for v in np.asarray(position)],
+                "quat_wxyz": [float(v) for v in np.asarray(quat_wxyz)],
+            },
+        }
+        if frame_points is not None:
+            cap = _VIZ_POINTS_CAP
+            rec["filtered_points"] = np.round(
+                frame_points["filtered"][:cap], 4).tolist()
+            if self.collect_inlier_points:
+                # the newest points of every slot, the cap shared fairly: a
+                # tail of the slot-ordered concatenation would starve the
+                # low-numbered segments once the total passes the cap
+                slot_lists = [lst for lst in self._inlier_points.values() if lst]
+                lens = [sum(len(a) for a in lst) for lst in slot_lists]
+                quotas = _waterfill_quotas(lens, cap)
+                parts = [_tail_points(lst, q)
+                         for lst, q in zip(slot_lists, quotas) if q]
+                acc = (np.concatenate(parts, axis=0) if parts
+                       else np.zeros((0, 3)))
+                rec["hough_points"] = np.round(acc, 4).tolist()
+                rec["hough_points_world_accumulated"] = True
+            else:
+                rec["hough_points"] = np.round(
+                    frame_points["hough"][:cap], 4).tolist()
+        self._write_viz_record(rec)
+
+    def _write_viz_record(self, rec: dict) -> None:
+        """Deliver one viz record to the callable or append it to the JSONL.
+        One thread processes frames at a time, so there is one writer."""
+        if callable(self._viz_stream):
+            self._viz_stream(rec)
+            return
+        if self._viz_file is None:
+            parent = os.path.dirname(os.path.abspath(self._viz_stream))
+            os.makedirs(parent, exist_ok=True)
+            # truncate only on the first open of this engine's lifetime: a
+            # restart after stop() + finalize() (which closes the file)
+            # appends, as records and CSVs are cumulative across restarts
+            mode = "a" if self._viz_file_opened else "w"
+            self._viz_file = open(self._viz_stream, mode)
+            self._viz_file_opened = True
+        self._viz_file.write(json.dumps(rec) + "\n")
+        self._viz_file.flush()
+
+    def run_replay(self, frames, pipelined: bool = False) -> List[dict]:
+        """Process every frame of an io.simulator replay (poses auto-pushed).
+
+        pipelined=True runs the same synchronous loop, as the JAX engine does
+        off its jax backend: the Hough loop reads the host every round, so
+        there is no per-frame read left to defer."""
+        del pipelined
         out = []
         for fr in frames:
             self.push_pose(fr.t, fr.position, fr.quat_wxyz)
@@ -125,6 +425,162 @@ class SegmentationEngine:
                 out.append(rec)
         return out
 
+    # ---------------------------------------------------------------- streaming
+
+    def start(self) -> None:
+        """Start the consumer thread (the reference's processingThread).
+        Restart-safe: a mailbox closed by an earlier stop() is replaced."""
+        if self._worker is not None:
+            return
+        if self.mailbox.closed:
+            # dropped_frames stays cumulative across restarts
+            self._dropped_before = self.dropped_frames
+            self.mailbox = LatestWinsMailbox()
+        self._running = True
+        if not self._atexit_registered:
+            # An engine abandoned without stop() would leave the interpreter
+            # to kill the daemon worker in the middle of a frame at exit;
+            # atexit runs before that, so stop() joins it first.  The weak
+            # reference lets a dropped engine be collected.
+            import atexit
+            import weakref
+
+            ref = weakref.ref(self)
+
+            def _cleanup():
+                eng = ref()
+                if eng is not None and eng._running:
+                    try:
+                        eng.stop()
+                    except Exception:       # pragma: no cover - exit path
+                        logger.exception("atexit engine stop failed")
+
+            atexit.register(_cleanup)
+            self._atexit_registered = True
+        self._worker = threading.Thread(target=self._worker_loop, daemon=True,
+                                        name="pcs-torch-worker")
+        self._worker.start()
+
+    def _worker_loop(self) -> None:
+        # A frame that raises is counted and the worker goes on (the
+        # reference's worker dies on the first TF failure, node.cpp:281-283,
+        # a quirk this runtime fixes: skip and continue).
+        with self._on_device():
+            while self._running:
+                item = self.mailbox.take(timeout=0.1)
+                if item is None:
+                    continue
+                t, points = item
+                try:
+                    self.process_frame(t, points)
+                except Exception:
+                    self.frames_failed += 1
+                    logger.exception("frame at t=%s failed; worker continues", t)
+                with self._progress:
+                    self._progress.notify_all()
+
+    def drain(self, target_total: Optional[int] = None,
+              timeout: float = 60.0, poll_s: float = 0.05) -> bool:
+        """Wait until every submitted cloud is accounted for (processed,
+        failed, skipped, or dropped by latest-wins).  ``target_total``
+        defaults to ``frames_submitted``.  The wait wakes when the worker
+        finishes a frame, and every ``poll_s`` for drops, which happen on the
+        submitting thread.  The window extends while the worker makes
+        progress.  Returns True if drained."""
+        if target_total is None:
+            target_total = self.frames_submitted
+
+        def accounted():
+            return (self.frames_processed + self.frames_failed
+                    + self.frames_skipped_no_pose)
+
+        deadline = time.monotonic() + timeout
+        while True:
+            with self._progress:
+                # checked under the condition: the worker's notify after
+                # this check cannot be missed
+                before = accounted()
+                if before + self.dropped_frames >= target_total:
+                    return True
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    return False
+                self._progress.wait(min(poll_s, left))
+            if accounted() != before:
+                deadline = time.monotonic() + timeout
+
+    def stop(self) -> None:
+        self._running = False
+        self.mailbox.close()
+        if self._worker is not None:
+            # block until the worker really exits: finalize() must not read
+            # the world state while a frame is still being fused into it
+            self._worker.join(timeout=10.0)
+            while self._worker.is_alive():
+                logger.warning("worker still busy; waiting for a clean stop")
+                self._worker.join(timeout=30.0)
+            self._worker = None
+
+    def run_streaming_from_log(self, log_path: str, rate_hz: float = 30.0,
+                               loops: int = 1, poll_s: float = 0.05) -> dict:
+        """Stream a recorded frame log through the live runtime: this thread
+        paces clouds into the latest-wins mailbox and poses into the pose
+        buffer at `rate_hz` (0: as fast as it can) while the worker
+        processes; frames are dropped, not queued, when processing falls
+        behind, as on the reference's depth-1 /tof_pc subscription.
+
+        Returns ``{"fed": n, "processed": n, "dropped": n, "skipped": n,
+        "failed": n, "drained": bool, "feed_s": s, "drain_s": s}`` for this
+        run, each count from its own counter (``dropped`` is the mailbox's),
+        so a frame lost between them shows as ``fed`` exceeding their sum:
+        feed_s is the paced feed, drain_s the wait after it until every
+        frame is accounted for, and ``drained`` False if that wait timed
+        out."""
+        from ..io.replay import load_frames
+
+        frames = load_frames(log_path)
+        self.start()
+        t_feed0 = time.perf_counter()
+        # per-run accounting baseline: counters are cumulative across runs
+        base_total = (self.frames_processed + self.frames_failed
+                      + self.frames_skipped_no_pose + self.dropped_frames)
+        base_processed = self.frames_processed
+        base_dropped = self.dropped_frames
+        base_skipped = self.frames_skipped_no_pose
+        base_failed = self.frames_failed
+        period = 1.0 / rate_hz if rate_hz > 0 else 0.0
+        # Per-loop time offset: replaying the raw timestamps every loop would
+        # rewind the clock, and the sorted pose buffer would then evict all
+        # but the newest timestamps until every lookup of a fresh frame fails.
+        gaps = [b.t - a.t for a, b in zip(frames, frames[1:]) if b.t > a.t]
+        span = ((frames[-1].t - frames[0].t) if frames else 0.0) + (
+            period or (gaps[-1] if gaps else 1e-3))
+        fed = 0
+        for loop in range(max(loops, 1)):
+            off = loop * span
+            for fr in frames:
+                self.push_pose(fr.t + off, fr.position, fr.quat_wxyz)
+                self.submit_cloud(fr.t + off, fr.points)
+                fed += 1
+                if period:
+                    time.sleep(period)
+        t_drain0 = time.perf_counter()
+        drained = self.drain(target_total=base_total + fed, poll_s=poll_s)
+        self.stop()
+        t_end = time.perf_counter()
+        return {"fed": fed,
+                "processed": self.frames_processed - base_processed,
+                "dropped": self.dropped_frames - base_dropped,
+                "skipped": self.frames_skipped_no_pose - base_skipped,
+                "failed": self.frames_failed - base_failed,
+                "drained": drained,
+                "feed_s": round(t_drain0 - t_feed0, 3),
+                "drain_s": round(t_end - t_drain0, 3)}
+
+    @property
+    def dropped_frames(self) -> int:
+        return self._dropped_before + self.mailbox.dropped
+
     # ---------------------------------------------------------------- outputs
 
     @property
@@ -132,46 +588,116 @@ class SegmentationEngine:
         """The world map on the device (a WorldState of tensors)."""
         return self._state
 
-    def world_segments(self) -> List[dict]:
-        """Current world map as host dicts (segments.csv row source)."""
+    def _world_snapshot_locked(self) -> Tuple[List[dict], List[tuple]]:
         st = self._state
         n = int(st.count)
-        f = {k: getattr(st, k)[:n].cpu().numpy()
+        f = {k: _host(getattr(st, k)[:n])
              for k in ("a", "b", "t_min", "t_max", "radius", "points_size",
                        "pca_coeff")}
-        return [{"a": f["a"][i], "b": f["b"][i],
+        segs = [{"a": f["a"][i], "b": f["b"][i],
                  "t_min": float(f["t_min"][i]), "t_max": float(f["t_max"][i]),
                  "radius": float(f["radius"][i]),
                  "points_size": int(f["points_size"][i]),
                  "pca_coeff": float(f["pca_coeff"][i])}
                 for i in range(n)]
+        return segs, intersection_pairs(_host(st.inter[:n, :n]), n)
+
+    def world_snapshot(self) -> Tuple[List[dict], List[tuple]]:
+        """(world_segments, intersections_rows) as one mutually consistent
+        pair: a frame fused between two separate calls could otherwise give
+        intersection rows that name segments absent from the list
+        (concurrent readers: server queries, live viz pollers)."""
+        with self._state_lock:
+            return self._world_snapshot_locked()
+
+    def world_segments(self) -> List[dict]:
+        """Current world map as host dicts (segments.csv row source)."""
+        return self.world_snapshot()[0]
 
     def intersections_rows(self) -> List[tuple]:
         """(seg1, t1, seg2, t2) rows, upper-triangular order (node.cpp:858)."""
-        n = int(self._state.count)
-        return intersection_pairs(self._state.inter[:n, :n].cpu().numpy(), n)
+        return self.world_snapshot()[1]
+
+    def visualization(self, include_points: bool = True) -> dict:
+        """Marker-style structured viz (the RViz MarkerArray analog):
+        cylinders per world segment, spheres per intersection, text labels
+        (node.cpp:676-842).  `include_points=False` skips the accumulated
+        inlier points, which grow without bound over a stream."""
+        cylinders, texts, spheres = [], [], []
+        segs, inter_rows = self.world_snapshot()
+        for i, s in enumerate(segs):
+            p1 = np.asarray(s["a"]) + s["t_min"] * np.asarray(s["b"])
+            p2 = np.asarray(s["a"]) + s["t_max"] * np.asarray(s["b"])
+            mid = (p1 + p2) / 2
+            cylinders.append({"id": i, "p1": p1, "p2": p2, "center": mid,
+                              "radius": s["radius"],
+                              "height": float(np.linalg.norm(p2 - p1))})
+            texts.append({"id": i, "position": mid, "text": str(i)})
+        for (i, t1, j, t2) in inter_rows:
+            s = segs[i]
+            p = np.asarray(s["a"]) + t1 * np.asarray(s["b"])
+            r = 1.5 * max(self.cfg.radius_sizes[0], self.cfg.radius_sizes[-1])
+            spheres.append({"position": p, "radius": r,
+                            "text": f"Intersection: {i} & {j}"})
+        out = {"cylinders": cylinders, "segment_texts": texts,
+               "intersections": spheres}
+        if include_points and self.collect_inlier_points:
+            # the worker appends chunks under the lock
+            with self._state_lock:
+                if self._inlier_points:
+                    out["hough_points"] = {
+                        k: np.concatenate(v, axis=0)
+                        for k, v in self._inlier_points.items()}
+        return out
+
+    # ---------------------------------------------------------------- checkpoint
+
+    def save_checkpoint(self, path: str) -> None:
+        """Write the world map, the records and the counters to one npz
+        (convert.write_checkpoint, backend "torch"): checkpoint and resume,
+        which the reference, whose map lives only in RAM, lacks."""
+        with self._state_lock:
+            state = world_state_to_numpy(self._state)
+            records = list(self.records)
+            frames, overflow = self.frames_processed, self.world_overflow_frames
+        write_checkpoint(path, state, frames, records, overflow)
 
     def load_checkpoint(self, path: str) -> None:
-        """Resume the world map and records from a JAX engine's checkpoint."""
-        data = load_jax_checkpoint(path)
-        self._state = world_state_from_numpy(data, self.device)
-        self.frames_processed = data["frames_processed"]
-        self.records = [
-            {"wall_time": r[0], "processing_time": r[1],
-             "seg_vec_size": int(r[2]), "nblines": int(r[3])}
-            for r in data["records"]]
-        self.world_overflow_frames = data["world_overflow_frames"]
+        """Resume the world map, records and counters from a checkpoint of
+        the port or of the JAX engine (an oracle checkpoint raises)."""
+        data = read_checkpoint(path)
+        state = world_state_from_numpy(data, self.device)
+        with self._state_lock:
+            self._state = state
+            self.frames_processed = data["frames_processed"]
+            self.records = [
+                {"wall_time": r[0], "processing_time": r[1],
+                 "seg_vec_size": int(r[2]), "nblines": int(r[3])}
+                for r in data["records"]]
+            self.world_overflow_frames = data["world_overflow_frames"]
+        # re-anchor the cadence to the restored frame count: a resumed
+        # engine neither re-saves the checkpoint it loaded nor skips the
+        # next boundary
+        self._last_checkpoint_k = (
+            self.frames_processed // self.checkpoint_every
+            if self.checkpoint_every else 0)
 
     def finalize(self, outdir: Optional[str] = None) -> dict:
-        """Write the three reference CSVs (the node-destructor flush)."""
+        """Write the three reference CSVs (the node-destructor flush) and
+        close the viz stream's file."""
+        if self._viz_file is not None:
+            self._viz_file.close()
+            self._viz_file = None
         outdir = csvio.ensure_outdir(outdir or self.cfg.path_to_output)
         paths = {
             "intersections": os.path.join(outdir, "intersections.csv"),
             "segments": os.path.join(outdir, "segments.csv"),
             "processing_time": os.path.join(outdir, "processing_time.csv"),
         }
-        csvio.write_intersections_csv(paths["intersections"],
-                                      self.intersections_rows())
-        csvio.write_segments_csv(paths["segments"], self.world_segments())
-        csvio.write_processing_time_csv(paths["processing_time"], self.records)
+        with self._state_lock:
+            segs, inter = self._world_snapshot_locked()
+            records = list(self.records)
+        csvio.write_intersections_csv(paths["intersections"], inter)
+        csvio.write_segments_csv(paths["segments"], segs)
+        csvio.write_processing_time_csv(paths["processing_time"], records)
         return paths

@@ -1,13 +1,16 @@
 """The PyTorch port stands alone: it imports nothing of the JAX package, and
 its copies of the JAX package's framework-free code (config, sphere,
-quat_to_rot, the simulator, the pose buffer, the CSV writers, the
-intersection rows) give the same values as the originals."""
+quat_to_rot, the scenes and the simulator, the replay codec, the mailbox,
+the pose buffer, the CSV writers, the intersection rows, the viz point
+helpers, eval and the server's wire format) give the same values as the
+originals."""
 
 import ast
 import dataclasses
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -17,8 +20,13 @@ from pointcloud_segmentation_tpu import geometry as JG
 from pointcloud_segmentation_tpu import sphere as JS
 from pointcloud_segmentation_tpu.io import scene as JSC
 from pointcloud_segmentation_tpu.io import simulator as JSIM
+from pointcloud_segmentation_tpu.io import replay as JREP
+from pointcloud_segmentation_tpu import eval as JEVAL
 from pointcloud_segmentation_tpu.runtime import csvio as JCSV
+from pointcloud_segmentation_tpu.runtime import engine as JENG
+from pointcloud_segmentation_tpu.runtime import server as JSRV
 from pointcloud_segmentation_tpu.runtime.engine import SegmentationEngine as JaxEngine
+from pointcloud_segmentation_tpu.runtime.mailbox import LatestWinsMailbox as JMailbox
 from pointcloud_segmentation_tpu.runtime.posebuffer import PoseBuffer as JPoseBuffer
 
 from pointcloud_segmentation_tpu_torch import config as TC
@@ -26,8 +34,13 @@ from pointcloud_segmentation_tpu_torch import geometry as TG
 from pointcloud_segmentation_tpu_torch import sphere as TS
 from pointcloud_segmentation_tpu_torch.io import scene as TSC
 from pointcloud_segmentation_tpu_torch.io import simulator as TSIM
+from pointcloud_segmentation_tpu_torch.io import replay as TREP
+from pointcloud_segmentation_tpu_torch import eval as TEVAL
 from pointcloud_segmentation_tpu_torch.runtime import csvio as TCSV
+from pointcloud_segmentation_tpu_torch.runtime import engine as TENG
+from pointcloud_segmentation_tpu_torch.runtime import server as TSRV
 from pointcloud_segmentation_tpu_torch.runtime.engine import intersection_pairs
+from pointcloud_segmentation_tpu_torch.runtime.mailbox import LatestWinsMailbox as TMailbox
 from pointcloud_segmentation_tpu_torch.runtime.posebuffer import PoseBuffer as TPoseBuffer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -127,6 +140,10 @@ def _same_config(tc, jc):
 def _config_default():
     _same_config(TC.default_config(), JC.default_config())
     assert TC.NUM_DIRECTIONS == JC.NUM_DIRECTIONS
+    assert (TC.VERBOSE_NONE, TC.VERBOSE_INFO, TC.VERBOSE_WARN) == (
+        JC.VERBOSE_NONE, JC.VERBOSE_INFO, JC.VERBOSE_WARN)
+    for kw in ({}, dict(granularity=2, radius_sizes=(0.015, 0.05), verbose_level=2)):
+        assert TC.default_config(**kw).to_dict() == JC.default_config(**kw).to_dict()
 
 
 def _config_yaml(tmp_path):
@@ -235,12 +252,178 @@ def _intersection_pairs():
         assert intersection_pairs(inter, n) == JaxEngine._intersection_pairs(inter, n)
 
 
+def _mailbox():
+    """The same put/take/close sequence gives the same values and drops, on
+    one thread and with a consumer thread racing a producer."""
+    rng = np.random.default_rng(9)
+    boxes = (TMailbox(), JMailbox())
+    script = [("put", int(v)) if rng.random() < 0.6 else ("take", None)
+              for v in rng.integers(0, 1000, 200)] + [("close", None), ("take", None),
+                                                      ("put", 7), ("take", None)]
+    seen = ([], [])
+    for op, v in script:
+        for box, got in zip(boxes, seen):
+            if op == "put":
+                box.put(v)
+            elif op == "take":
+                got.append(box.take(timeout=0.0))
+            else:
+                box.close()
+    assert seen[0] == seen[1]
+    assert boxes[0].dropped == boxes[1].dropped > 0
+    assert boxes[0].closed and boxes[1].closed
+
+    def race(box):
+        taken = []
+        t = threading.Thread(target=lambda: taken.extend(
+            iter(lambda: box.take(timeout=0.5), None)))
+        t.start()
+        for v in range(2000):
+            box.put(v)
+        box.close()
+        t.join(timeout=10.0)
+        assert not t.is_alive()
+        assert taken == sorted(set(taken)) and taken[-1] == 1999
+        assert len(taken) + box.dropped == 2000
+    for box in (TMailbox(), JMailbox()):
+        race(box)
+
+
+def _replay_codec(tmp_path):
+    poses = TSC.trajectory_poses(TSC.WP_TESTS, hz=2.0, velocity=0.25)[::5]
+    frames = TSIM.simulate_trajectory(TSC.OBS_TESTS_SCENE, poses,
+                                      TSIM.TofSpec(width=16, height=12), seed=2)
+    frames.append(TSIM.Frame(t=99.5, position=np.zeros(3), quat_wxyz=np.array([1.0, 0, 0, 0]),
+                             points=np.zeros((0, 3), np.float32)))
+    pt, pj = str(tmp_path / "t.pcsl"), str(tmp_path / "j.pcsl")
+    assert TREP.save_frames(pt, frames) == JREP._py_save(pj, frames) == len(frames)
+    with open(pt, "rb") as a, open(pj, "rb") as b:
+        assert a.read() == b.read()
+    for got in (TREP.load_frames(pj), JREP.load_frames(pt), list(JREP._py_load(pt))):
+        assert len(got) == len(frames)
+        for a, b in zip(got, frames):
+            assert a.t == b.t
+            for f in ("position", "quat_wxyz", "points"):
+                assert np.asarray(getattr(a, f)).tobytes() == np.asarray(getattr(b, f)).tobytes()
+    with open(pj, "wb") as f:
+        f.write(b"NOPE")
+    with pytest.raises(IOError):
+        TREP.load_frames(pj)
+
+
+WBT = """#VRML_SIM R2023a utf8
+DEF SEG2 Solid {
+  translation 0.3 -0.2 1.3
+  rotation 0.1294 -0.9659 -0.2241 3.14159
+  children [ Shape { geometry Cylinder { height 1.5 radius 0.04 } } ]
+}
+DEF SEG1 Solid {
+  translation 0.14 0.44 1.33
+  rotation -0.1197 0.9794 -0.1628 3.04251
+  children [ Shape { geometry Cylinder { radius 0.05 } } ]
+}
+DEF SEG3 Solid {
+  translation 1 2 3
+}
+"""
+
+
+def _scenes(tmp_path):
+    def same(a, b):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            assert (x.center, x.axis, x.radius, x.height) == (y.center, y.axis, y.radius, y.height)
+            assert np.array_equal(x.endpoints(), y.endpoints())
+            assert x.as_truth() == y.as_truth()
+
+    for name in ("OBS_TESTS_SCENE", "OBS_DEV_SCENE"):
+        same(getattr(TSC, name), getattr(JSC, name))
+    for kw in ({}, dict(radius=0.1)):
+        same(TSC.mockup_scene(**kw), JSC.mockup_scene(**kw))
+    for kw in ({}, dict(levels=2, width=1.0)):
+        same(TSC.tower_scene(**kw), JSC.tower_scene(**kw))
+    for seed in (0, 3):
+        same(TSC.simple_scene(n_beams=4, seed=seed), JSC.simple_scene(n_beams=4, seed=seed))
+    assert TSC.scene_truth(TSC.OBS_DEV_SCENE) == JSC.scene_truth(JSC.OBS_DEV_SCENE)
+    assert TSC.WP_MOCKUP == JSC.WP_MOCKUP and TSC.WP_TESTS == JSC.WP_TESTS
+    for kw in ({}, dict(a=1.8, z=1.7)):
+        assert TSC.figure_eight_waypoints(**kw) == JSC.figure_eight_waypoints(**kw)
+    for kw in ({}, dict(radius=1.2, z0=0.4, z1=2.2, turns=2.0, n=40)):
+        assert TSC.spiral_waypoints(**kw) == JSC.spiral_waypoints(**kw)
+    csv = tmp_path / "wp.csv"
+    csv.write_text("x,y,z,yaw,duration\n1,0,0.3,3.14,5\n\n1,0,2,3.14,15\n")
+    assert TSC.load_waypoints_csv(str(csv)) == JSC.load_waypoints_csv(str(csv))
+    csv.write_text("1,0,0.3,3.14,5\n")
+    for mod in (TSC, JSC):
+        with pytest.raises(ValueError):
+            mod.load_waypoints_csv(str(csv))
+    wbt = tmp_path / "world.wbt"
+    wbt.write_text(WBT)
+    got = TSC.parse_wbt_scene(str(wbt))
+    assert len(got) == 3 and got[1].height == 1.5 and got[2].radius == 1.0
+    same(got, JSC.parse_wbt_scene(str(wbt)))
+
+
+def _viz_point_helpers():
+    rng = np.random.default_rng(10)
+    for _ in range(50):
+        lens = [int(v) for v in rng.integers(0, 40, rng.integers(1, 8))]
+        cap = int(rng.integers(0, 120))
+        assert TENG._waterfill_quotas(lens, cap) == JENG._waterfill_quotas(lens, cap)
+        chunks = [rng.normal(size=(n, 3)) for n in lens if n]
+        for q in range(1, sum(lens) + 1, 7):
+            if chunks:
+                assert np.array_equal(TENG._tail_points(chunks, q),
+                                      JENG._tail_points(chunks, q))
+
+
+def _eval(tmp_path):
+    rng = np.random.default_rng(11)
+    truth = JSC.scene_truth(JSC.OBS_TESTS_SCENE)
+    proc = []
+    for t in truth:
+        b = np.asarray(t["b"]) + rng.normal(scale=0.03, size=3)
+        proc.append({"a": np.asarray(t["a"]) + rng.normal(scale=0.1, size=3), "b": b,
+                     "t_min": -0.9 + rng.normal(scale=0.1), "t_max": 0.9})
+    proc += [{"a": rng.normal(size=3), "b": rng.normal(size=3), "t_min": 0.0, "t_max": 1.0}]
+    for th in ((0.1, 0.5), (0.05, 0.2)):
+        a, b = TEVAL.match_report(truth, proc, *th), JEVAL.match_report(truth, proc, *th)
+        assert a.keys() == b.keys()
+        assert all(a[k] == b[k] or (a[k] != a[k] and b[k] != b[k]) for k in a)
+    path = str(tmp_path / "processing_time.csv")
+    recs = [{"wall_time": 1e5 * i, "processing_time": float(rng.uniform(1e4, 9e4)),
+             "seg_vec_size": i, "nblines": int(rng.integers(0, 4))} for i in range(20)]
+    JCSV.write_processing_time_csv(path, recs)
+    dt, dj = TEVAL.load_processing_time_csv(path), JEVAL.load_processing_time_csv(path)
+    assert dt.keys() == dj.keys() and all(np.array_equal(dt[k], dj[k]) for k in dt)
+    assert TEVAL.summarize(dt) == JEVAL.summarize(dj)
+
+
+def _server_wire():
+    rng = np.random.default_rng(12)
+    for n in (0, 1, 777):
+        t, pos, quat = float(rng.normal()), rng.normal(size=3), rng.normal(size=4)
+        pts = rng.normal(size=(n, 3))
+        mt = TSRV.pack_frame(t, pos, quat, pts)
+        assert mt == JSRV.pack_frame(t, pos, quat, pts)
+        assert TSRV._HDR.unpack(mt[:TSRV._HDR.size]) == (TSRV.MSG_FRAME, len(mt) - TSRV._HDR.size)
+        for unpack in (TSRV._unpack_frame, JSRV._unpack_frame):
+            t2, pos2, quat2, pts2 = unpack(mt[TSRV._HDR.size:])
+            assert t2 == t and np.array_equal(pos2, pos) and np.array_equal(quat2, quat)
+            assert np.array_equal(pts2, pts.astype(np.float32))
+    assert (TSRV.MSG_FRAME, TSRV.MSG_QUERY, TSRV.MSG_FINAL, TSRV.MSG_SNAP) == (
+        JSRV.MSG_FRAME, JSRV.MSG_QUERY, JSRV.MSG_FINAL, JSRV.MSG_SNAP)
+
+
 PARITY = {
     "config_default": _config_default, "config_yaml": _config_yaml,
     "config_grid": _config_grid, "hough_space": _hough_space,
     "quat_to_rot": _quat_to_rot, "simulate_trajectory": _simulate_trajectory,
     "pose_buffer_lookup": _pose_buffer, "csv_writers": _csv_writers,
-    "intersection_pairs": _intersection_pairs,
+    "intersection_pairs": _intersection_pairs, "mailbox": _mailbox,
+    "replay_codec": _replay_codec, "scenes_and_waypoints": _scenes,
+    "viz_point_helpers": _viz_point_helpers, "eval": _eval,
+    "server_wire": _server_wire,
 }
 
 
