@@ -6,13 +6,22 @@ drives the live node loop at the shipped config on the card: a lockstep
 stream through the worker, paced and unpaced streams of a recorded log, the
 TCP server, the CLI in subprocesses, and a checkpoint resume, each held to
 the synchronous replay or to its own accounting, and each counting its
-vote_state launches.
+vote_state launches.  Last the parity stack, on the card with the hand
+kernels: the float64 mode against the numpy oracle on the host (g6 lazy and
+g4 carry on the 31-frame replay, both kernels launched, float64 lazy equal
+to float64 carry), the
+kernels against their plain versions on the float32 inputs a float64 frame
+hands them, batched replay against synchronous, sequential fusion against
+vectorised, seeds of tools/parity_soak_torch.py, and the oracle backend.
 
-    python3 chip_smoke.py [--earlier path/to/an/earlier/voting.cu]
+    python3 chip_smoke.py [--earlier path/to/an/earlier/voting.cu] [--parity-only]
 
 Needs one CUDA card and nvcc; exits non-zero on any failure.  With
 --earlier, the kernels of that source (same C entries) are built too and
-timed beside this checkout's at the NX 79 main-path shapes.  It prints the
+timed beside this checkout's at the NX 79 main-path shapes.  With
+--parity-only, the kernel table, the golden fixtures and the node loop are
+left out (for work on the parity stack; the last lines are printed only by a
+whole run).  It prints the
 card's name and power limit, one line per check and time, then a JSON line
 of the kernels, the card line again, and last the JSON line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -22,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import importlib.util
 import json
 import os
 import statistics
@@ -697,10 +707,291 @@ def checkpoint_phase(cfg, frames, ref, tmp):
           "the straight g6 replay")
 
 
+# ------------------------------------------------------------------ parity stack
+
+PARITY_TOL = 1e-4       # float64 mode against the oracle, on endpoints
+# frames of the full-size replay that the g6 float64 phase holds against the
+# oracle, which takes 5-12 s a frame on the host at 20,481 directions (all 31
+# took 370 s): the 16 in mid-flight, where every beam is in view.  Cut the
+# frames here, never the width, if the host is slower still
+G6_PARITY_FRAMES = slice(8, 24)
+# (mode, first seed, count) of tools/parity_soak_torch.py; the g6 seeds draw
+# NX 79 grids and 3-4 frames
+SOAK_SEEDS = (("base", 3000, 4), ("g6", 3100, 1), ("g6", 3102, 1))
+
+
+def f64_parity(label, cfg, frames, kernel, card):
+    """The float64 mode on the card against the oracle backend on the host,
+    frame by frame: nlines, status, world count and every world segment's
+    points_size and radius exact, endpoints and intersection parameters
+    within 1e-4.  Returns (torch engine, oracle engine)."""
+    from pointcloud_segmentation_tpu_torch import SegmentationEngine
+
+    voting = counted_voting()
+    eng = SegmentationEngine(cfg, voting=voting)
+    ref = SegmentationEngine(cfg, backend="oracle")
+    check(eng.state.a.dtype == torch.float64 and eng.state.inter.dtype == torch.float64
+          and eng._tables[0].dtype == torch.float64 and eng._tables[1].dtype == torch.float32,
+          f"{label}: float64 world map and direction vectors, float32 plane bases")
+    worst, t_port, t_ref, nlines = 0.0, [], [], []
+    for k, fr in enumerate(frames):
+        for e in (eng, ref):
+            e.push_pose(fr.t, fr.position, fr.quat_wxyz)
+        got, want = eng.process_frame(fr.t, fr.points), ref.process_frame(fr.t, fr.points)
+        t_port.append(got["processing_time"] / 1e3)
+        t_ref.append(want["processing_time"] / 1e3)
+        nlines.append(got["nblines"])
+        for f in ("nblines", "status", "seg_vec_size"):
+            if got[f] != want[f]:
+                fail(f"{label}, frame {k}: {f} {got[f]} against the oracle's {want[f]}")
+        (segs, inter), (osegs, ointer) = eng.world_snapshot(), ref.world_snapshot()
+        for i, (s, o) in enumerate(zip(segs, osegs)):
+            if (s["points_size"], s["radius"]) != (o["points_size"], o["radius"]):
+                fail(f"{label}, frame {k}, segment {i}: points_size and radius "
+                     f"{s['points_size']}, {s['radius']} against {o['points_size']}, {o['radius']}")
+            (p1, p2), (q1, q2) = endpoints(s), endpoints(o)
+            worst = max(worst, np.linalg.norm(p1 - q1), np.linalg.norm(p2 - q2),
+                        abs(s["pca_coeff"] - o["pca_coeff"]))
+        if [(i, j) for i, _, j, _ in inter] != [(i, j) for i, _, j, _ in ointer]:
+            fail(f"{label}, frame {k}: intersections {inter} against {ointer}")
+        for (_, a1, _, a2), (_, b1, _, b2) in zip(inter, ointer):
+            worst = max(worst, abs(a1 - b1), abs(a2 - b2))
+    launches_of(label, voting, kernel)
+    n_seg, n_int = len(eng.world_segments()), len(eng.intersections_rows())
+    check(sum(nlines) > 0 and n_seg >= 3,
+          f"{label}: nlines, status, world count, points_size and radius equal the "
+          f"oracle's on each of {len(frames)} frames ({sum(nlines)} lines, {n_seg} world "
+          f"segments, {n_int} intersections)")
+    check(worst <= PARITY_TOL, f"{label}: endpoints, pca_coeff and intersection "
+          f"parameters within {PARITY_TOL} of the oracle's on every frame (worst {worst:.3g})")
+    print(f"time  {label}, {len(frames)} frames, median ms/frame: float64 on the card "
+          f"{statistics.median(t_port):.3f}, the oracle on the host "
+          f"{statistics.median(t_ref):.3f} [{card}]", flush=True)
+    return eng, ref
+
+
+def f64_kernel_checks(dev, frame, card):
+    """On one float64 frame, the float32 copy that ops/hough.py hands the
+    voting layer gives the same bins, vote_state and vote_histogram outputs
+    through the kernels as through their plain versions, and the oracle's
+    bins."""
+    from pointcloud_segmentation_tpu_torch.config import default_config
+    from pointcloud_segmentation_tpu_torch.oracle.pipeline import HoughSpace
+    from pointcloud_segmentation_tpu_torch.ops import voting as V
+    from pointcloud_segmentation_tpu_torch.ops.hough import (
+        _pad_dirs_to_tile, center_cloud, direction_tables, vote_inputs)
+    from pointcloud_segmentation_tpu_torch.ops.preproc import preprocess
+
+    sh = Shapes(card)
+    for gran, name in ((6, "vote_state"), (4, "vote_histogram")):
+        cfg = default_config(granularity=gran, compute_dtype="float64")
+        NX = cfg.num_x_max
+        raw = np.full((cfg.shapes.max_raw_points, 3), np.nan, np.float64)
+        raw[: len(frame.points)] = frame.points[: len(raw)]
+        pts, valid, _ = preprocess(torch.from_numpy(raw).to(dev), cfg)
+        dx = torch.full((), cfg.opt_dx, dtype=torch.float64, device=dev)
+        Xs, _, d, half, nx = center_cloud(pts, valid, dx)
+        Xv, half32, dx32 = vote_inputs(Xs, half, dx)
+        check(Xs.dtype == torch.float64 and Xv.dtype == half32.dtype == dx32.dtype
+              == torch.float32 and Xv.is_contiguous(),
+              f"float64 g{gran} frame: a float64 centred cloud, one contiguous float32 "
+              f"copy and float32 half and dx for the voting layer")
+        dirs, c1, c2 = _pad_dirs_to_tile(*direction_tables(gran, dev, torch.float64))
+        xk, yk = V.vote_bins_kernel(Xv, c1, c2, half32, dx32, nx)
+        xp, yp = V.vote_bins(Xv, c1, c2, half32, dx32, nx)
+        n_bad = int((xk != xp).sum() + (yk != yp).sum())
+        check(n_bad == 0, f"float64 g{gran} frame: kernel bins bit-equal to the plain "
+                          f"bins ({2 * xk.numel()} bins, {n_bad} differ)")
+        # the oracle bins the float64 points it casts itself, (n, B)
+        hs = HoughSpace(gran, cfg.opt_dx, float(d))
+        live = valid.cpu().numpy()
+        xo, yo = hs.bin_indices(Xs.cpu().numpy()[live])
+        B = hs.c1.shape[0]
+        n_bad = int((xk[:B].cpu().numpy()[:, live] != xo.T).sum()
+                    + (yk[:B].cpu().numpy()[:, live] != yo.T).sum())
+        check(hs.num_x == int(nx) and n_bad == 0,
+              f"float64 g{gran} frame: kernel bins equal the oracle's bins "
+              f"({2 * xo.size} bins, {n_bad} differ, num_x {hs.num_x})")
+        del xk, yk, xp, yp, xo, yo
+        p = (Xv, valid, half32, dx32, nx, NX)
+        if name == "vote_state":
+            sh.state("float64 frame, the full g6 table", p, c1, c2)
+        else:
+            sh.histogram("float64 frame, g4", p, c1, c2)
+        for wrapper in (V.vote_state, V.vote_histogram):
+            try:
+                wrapper(Xs, valid, c1, c2, half32, dx32, nx, NX)
+            except ValueError:
+                continue
+            fail(f"{wrapper.__name__} took a float64 cloud on the card")
+    check(True, "a float64 cloud on the card is refused by both wrappers, not converted")
+    return sh
+
+
+def lazy_equals_carry_f64(cfg4, frames, carry_engine, dev):
+    import dataclasses
+
+    from pointcloud_segmentation_tpu_torch.convert import world_state_to_numpy
+
+    lazy, _ = counted_run("float64 g4 replay with lazy voting",
+                          dataclasses.replace(cfg4, voting="lazy"), frames, dev, "vote_state")
+    check(same_state(lazy["state"], world_state_to_numpy(carry_engine.state)),
+          "float64 g4: lazy voting gives the carry replay's world state bit for bit")
+
+
+def batched_phase(cfg, frames, ref, dev, card):
+    """run_replay(batch=4) against the synchronous replay: bit-identical
+    world state and the same per-frame nblines; sync, batched, batched, sync
+    timed by the host clock around each whole replay."""
+    from pointcloud_segmentation_tpu_torch import SegmentationEngine
+    from pointcloud_segmentation_tpu_torch.convert import world_state_to_numpy
+
+    def timed(batch):
+        voting = counted_voting()
+        eng = SegmentationEngine(cfg, dev, voting=voting)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recs = eng.run_replay(frames, batch=batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+        return eng, recs, ms, voting
+
+    _, _, s1, _ = timed(0)
+    eng, recs, b1, voting = timed(4)
+    launches_of("batched g6 replay", voting)
+    _, _, b2, _ = timed(4)
+    _, _, s2, _ = timed(0)
+    check(same_state(world_state_to_numpy(eng.state), ref["state"]),
+          "batched replay (batch 4): world state bit-identical to the synchronous g6 replay")
+    check([(r["nblines"], r["status"], r["seg_vec_size"]) for r in recs]
+          == [(r["nblines"], r["status"], r["seg_vec_size"]) for r in ref["records"]]
+          and eng.frames_processed == len(frames) and no_sentinels(eng.records),
+          f"batched replay: per-frame nblines, status and world count equal the "
+          f"synchronous replay's ({len(recs)} frames, {-(-len(frames) // 4)} host reads)")
+    print(f"time  replay g6, {len(frames)} frames, whole-replay ms/frame: batched (4) "
+          f"{(b1 + b2) / 2:.3f}, synchronous {(s1 + s2) / 2:.3f} (sync, batched, batched, "
+          f"sync: {s1:.3f} {b1:.3f} {b2:.3f} {s2:.3f}) [{card}]", flush=True)
+
+
+def sequential_fusion_phase(cfg, frames, dev):
+    """fuse_frame_sequential against fuse_frame on the card, on each frame's
+    segments of the g6 replay and the world map they meet."""
+    from pointcloud_segmentation_tpu_torch.ops.hough import direction_tables
+    from pointcloud_segmentation_tpu_torch.pipeline import frame_segments
+    from pointcloud_segmentation_tpu_torch.worldmap import (
+        fuse_frame, fuse_frame_sequential, init_world, world_step)
+
+    tables = direction_tables(cfg.granularity, dev)
+    state = init_world(cfg, dev)
+    fused = appended = 0
+    for k, fr in enumerate(frames):
+        raw = np.full((cfg.shapes.max_raw_points, 3), np.nan, np.float32)
+        raw[: len(fr.points)] = fr.points[: len(raw)]
+        segs = frame_segments(
+            torch.from_numpy(raw).to(dev),
+            torch.tensor(fr.position, dtype=torch.float32, device=dev),
+            torch.tensor(fr.quat_wxyz, dtype=torch.float32, device=dev), cfg, tables)[4]
+        vec, seq = fuse_frame(state, segs, cfg), fuse_frame_sequential(state, segs, cfg)
+        for name, v, q in zip(("fields", "count", "valid", "modified", "new_flags", "slots"),
+                              vec, seq):
+            pairs = [(v[f], q[f]) for f in v] if isinstance(v, dict) else [(v, q)]
+            if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs):
+                fail(f"sequential fusion differs from the vectorised, frame {k}: {name}")
+        fused += int(vec[3].sum())
+        appended += int(vec[4].sum())
+        state, _ = world_step(state, segs, cfg)
+    check(fused > 0 and appended > 0,
+          f"fuse_frame_sequential == fuse_frame bit for bit on the card, {len(frames)} "
+          f"frames of the g6 replay ({fused} fusions, {appended} appends)")
+
+
+def load_soak():
+    spec = importlib.util.spec_from_file_location(
+        "parity_soak_torch", REPO / "tools" / "parity_soak_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def soak_phase(card):
+    """Fixed seeds of tools/parity_soak_torch.py on the card: the oracle
+    against the torch backend, no unexplained divergence."""
+    from pointcloud_segmentation_tpu_torch.ops import voting as V
+
+    soak = load_soak()
+    V.vote_state.launches = V.vote_histogram.launches = 0
+    t0 = time.perf_counter()
+    counts, n = collections.Counter(), 0
+    for mode, seed, k in SOAK_SEEDS:
+        if mode == "g6":
+            cfg, _ = soak.random_case(seed, mode)
+            check(cfg.num_x_max <= 105, f"soak seed {seed} ({mode}) draws a grid the oracle "
+                                        f"bins in seconds (NX {cfg.num_x_max})")
+        batch = soak.run_batch(k, seed, mode, False, "cuda")
+        counts.update(batch["counts"])
+        n += k
+    check(counts.get("real", 0) == 0,
+          f"soak: {n} seeds on cuda, 0 unexplained; diverging by class {dict(counts)}")
+    check(V.vote_state.launches > 0 and V.vote_histogram.launches > 0,
+          f"soak: launched vote_state {V.vote_state.launches} and vote_histogram "
+          f"{V.vote_histogram.launches} times")
+    print(f"time  soak, {n} seeds, both backends: {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+
+
+def oracle_backend_phase(ref, tmp):
+    """The oracle-backend engine of the g4 parity phase writes CSVs that
+    parse, and the CLI runs with --backend oracle."""
+    from pointcloud_segmentation_tpu_torch.runtime.csvio import read_segments_csv
+
+    paths = ref.finalize(os.path.join(tmp, "oracle_engine"))
+    for name, header in CSV_HEADERS.items():
+        with open(paths[name[:-4]]) as f:
+            check(f.readline().strip() == header, f"oracle backend: {name} has the reference header")
+    rows, segs = read_segments_csv(paths["segments"]), ref.world_segments()
+    worst = max(endpoint_gap(r, s) for r, s in zip(rows, segs))
+    check(len(rows) == len(segs) >= 3 and worst < 1e-4,
+          f"oracle backend: segments.csv parses to the engine's {len(segs)} world "
+          f"segments (worst endpoint gap {worst:.3g}, 6 digits kept)")
+    out = os.path.join(tmp, "cli_oracle")
+    cmd = [sys.executable, "-m", "pointcloud_segmentation_tpu_torch", "run", "--backend",
+           "oracle", "--granularity", "4", "--max-frames", "8", "--out", out]
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    if done.returncode != 0:
+        fail(f"cli run --backend oracle exited {done.returncode}:\n{done.stdout}\n{done.stderr}")
+    check(len(read_segments_csv(os.path.join(out, "segments.csv"))) >= 1,
+          f"cli run --backend oracle exited 0 in {time.perf_counter() - t0:.1f} s: "
+          + done.stdout.splitlines()[0])
+
+
+def parity_stack(cfg6, cfg4, frames, k6, dev, card, tmp):
+    import dataclasses
+
+    t0 = time.perf_counter()
+    f64_kernel_checks(dev, frames[len(frames) // 2], card)
+    part = frames[G6_PARITY_FRAMES]
+    f64_parity("float64 g6 lazy against the oracle",
+               dataclasses.replace(cfg6, compute_dtype="float64"), part, "vote_state", card)
+    cfg4_64 = dataclasses.replace(cfg4, compute_dtype="float64")
+    eng4, ref4 = f64_parity("float64 g4 carry against the oracle", cfg4_64, frames,
+                            "vote_histogram", card)
+    lazy_equals_carry_f64(cfg4_64, frames, eng4, dev)
+    batched_phase(cfg6, frames, k6, dev, card)
+    sequential_fusion_phase(cfg6, frames, dev)
+    soak_phase(card)
+    oracle_backend_phase(ref4, tmp)
+    print(f"time  the parity stack's phases: {time.perf_counter() - t0:.1f} s [{card}]",
+          flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one CUDA card.")
     ap.add_argument("--earlier", metavar="VOTING_CU",
                     help="an earlier csrc/voting.cu whose kernels are timed beside these")
+    ap.add_argument("--parity-only", action="store_true",
+                    help="the g6 replay and the parity stack's phases only; "
+                         "prints no result lines")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: chip_smoke needs a CUDA card")
@@ -735,11 +1026,18 @@ def main() -> None:
     frames = frames_of(OBS_TESTS_SCENE, poses, TofSpec(noise_frac=0.002), 0)
     check(len(frames) == 31, f"{len(frames)} frames in the full-size replay")
 
+    cfg6 = default_config()
+    cfg4 = default_config(granularity=4)
+    if args.parity_only:
+        k6, _ = counted_run("g6 replay", cfg6, frames, dev, "vote_state")
+        with tempfile.TemporaryDirectory(prefix="pcs_chip_smoke_") as tmp:
+            parity_stack(cfg6, cfg4, frames, k6, dev, card, tmp)
+        print("parity stack only: no result lines", flush=True)
+        sys.exit(3)
+
     sh = kernel_checks(dev, frames[len(frames) // 2], card, earlier)
     golden_checks(dev)
 
-    cfg6 = default_config()
-    cfg4 = default_config(granularity=4)
     cfg6s = default_config(radius_sizes=(0.015,))
     check(cfg6.voting_mode == "lazy" and cfg4.voting_mode == "carry"
           and cfg6s.voting_mode == "lazy" and cfg6s.num_x_max == 261,
@@ -808,6 +1106,7 @@ def main() -> None:
         serve_phase(cfg6, frames, tmp)
         cli_phase(tmp)
         checkpoint_phase(cfg6, frames, k6, tmp)
+        parity_stack(cfg6, cfg4, frames, k6, dev, card, tmp)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

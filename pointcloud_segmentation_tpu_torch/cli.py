@@ -12,12 +12,16 @@ Subcommands:
            with the reference match criteria (tests_structure.py analog)
   timing   analyze a processing_time.csv (proc_time_analysis.py analog)
 
-The commands, flags and output are the JAX package's CLI's, with --device
-(default cuda, which raises without a card) in place of --backend.
+The commands, flags and output are the JAX package's CLI's, with --backend
+torch (the default) or oracle (the numpy reference on the host, which needs
+no card), and --device for the torch backend (default cuda, which raises
+without a card).  A config whose compute_dtype is float64 runs the parity
+mode end to end.
 
 Examples:
   python -m pointcloud_segmentation_tpu_torch run --out ./output_data
   python -m pointcloud_segmentation_tpu_torch run --granularity 2 --device cpu
+  python -m pointcloud_segmentation_tpu_torch run --replay log.pcsl --backend oracle
   python -m pointcloud_segmentation_tpu_torch record log.pcsl --max-frames 100
   python -m pointcloud_segmentation_tpu_torch stream log.pcsl --rate 30 --out ./o
   python -m pointcloud_segmentation_tpu_torch eval ./output_data/segments.csv
@@ -38,8 +42,10 @@ def _add_common(p):
     p.add_argument("--config", help="reference-format config.yaml")
     p.add_argument("--granularity", type=int, default=None)
     p.add_argument("--opt-nlines", type=int, default=None)
+    p.add_argument("--backend", choices=["torch", "oracle"], default="torch")
     p.add_argument("--device", default="cuda",
-                   help="torch device of the pipeline (cuda, cuda:N or cpu)")
+                   help="torch device of the pipeline (cuda, cuda:N or cpu); "
+                        "the oracle backend runs on the host whatever it says")
     p.add_argument("--out", default=None, help="output dir (path_to_output)")
 
 
@@ -136,7 +142,7 @@ def cmd_run(args) -> int:
     cfg = _build_cfg(args)
     frames = _frames(args)
     eng = SegmentationEngine(
-        cfg, device=args.device, viz_stream=args.viz_stream,
+        cfg, device=args.device, backend=args.backend, viz_stream=args.viz_stream,
         viz_points=args.viz_points or args.viz_world_points,
         collect_inlier_points=args.viz_world_points)
     eng.run_replay(frames)
@@ -170,7 +176,7 @@ def cmd_stream(args) -> int:
         return 2
     cfg = _build_cfg(args)
     eng = SegmentationEngine(
-        cfg, device=args.device, viz_stream=args.viz_stream,
+        cfg, device=args.device, backend=args.backend, viz_stream=args.viz_stream,
         viz_points=args.viz_points or args.viz_world_points,
         collect_inlier_points=args.viz_world_points)
     stats = eng.run_streaming_from_log(args.log, rate_hz=args.rate,
@@ -194,7 +200,8 @@ def cmd_serve(args) -> int:
     from .runtime.server import SegmentationServer
 
     cfg = _build_cfg(args)
-    eng = SegmentationEngine(cfg, device=args.device, viz_stream=args.viz_stream)
+    eng = SegmentationEngine(cfg, device=args.device, backend=args.backend,
+                             viz_stream=args.viz_stream)
     srv = SegmentationServer(eng, host=args.host, port=args.port,
                              outdir=args.out or cfg.path_to_output)
     print(f"serving on {srv.host}:{srv.port}", flush=True)

@@ -70,8 +70,9 @@ class PipelineConfig:
     # --- additions beyond the reference ---
     shapes: StaticShapes = dataclasses.field(default_factory=StaticShapes)
     window_size: float = WINDOW_FILTERING_SIZE
-    # "float64" is the JAX package's parity mode; the port runs float32 only
-    # and refuses it where a pipeline is built.
+    # "float64" is the parity mode: the pipeline runs in float64 and only the
+    # float32-by-spec stages (vote bins, cell decode, scatter and covariance
+    # eigensolves) stay float32, as in the numpy oracle.
     compute_dtype: str = "float32"
     # Voting accumulator (ops/hough.py): "carry" keeps the exact
     # (B, num_x, num_x) histogram; "lazy" keeps only (best, key, bound) per
@@ -156,6 +157,8 @@ class PipelineConfig:
         kw = {key: raw[key] for key in _YAML_KEYS if key in raw}
         if "radius_sizes" in raw:
             kw["radius_sizes"] = tuple(float(r) for r in raw["radius_sizes"])
+        if "compute_dtype" in raw:      # beyond the reference: the parity mode
+            kw["compute_dtype"] = str(raw["compute_dtype"])
         kw.update(overrides)
         return cls(**kw)
 

@@ -11,6 +11,14 @@ CUDA tensors, when a caller passes ``voting=PLAIN`` to compare the two).
 JAX's ``lax.while_loop``/``switch`` become a host loop.  Each round reads one
 scalar (the update branch, which also decides whether the loop goes on) and,
 in a lazy incremental round, the suspect count that picks the re-exam tier.
+
+The float type follows the points': float32, or float64 in the parity mode
+(``compute_dtype="float64"``).  In both, the stages that are float32 by spec
+stay float32, as in the numpy oracle: the vote bins (the plane bases c1/c2,
+``half = d/2`` and ``dx``, each computed in the points' type and then cast,
+and one float32 copy of the centred cloud, which kernel, plain version,
+re-exam, rebuild and decrement all bin), the decoded cell centre, and the
+scatter and covariance eigensolves.
 """
 
 from __future__ import annotations
@@ -77,11 +85,14 @@ def empty_segments(L: int, N: int, dtype=torch.float32, device=None) -> SegmentB
         valid=z(L, dt=torch.bool))
 
 
-def direction_tables(granularity: int, device) -> tuple:
-    """(dirs, c1, c2) float32 tensors of the direction sphere (sphere.hough_space)."""
+def direction_tables(granularity: int, device, dtype=torch.float32) -> tuple:
+    """(dirs, c1, c2) of the direction sphere (sphere.hough_space): dirs in
+    `dtype`, straight from the float64 table; the plane bases c1 and c2 are
+    float32 by spec."""
     dirs, c1, c2 = hough_space(granularity)
-    return tuple(torch.tensor(t, dtype=torch.float32, device=device)
-                 for t in (dirs, c1, c2))
+    return (torch.tensor(dirs, dtype=dtype, device=device),
+            torch.tensor(c1, dtype=torch.float32, device=device),
+            torch.tensor(c2, dtype=torch.float32, device=device))
 
 
 def _masked_minmax(points, valid):
@@ -194,27 +205,42 @@ def center_cloud(points, valid, dx):
     return Xs, shift, d, d / 2.0, num_x
 
 
+def vote_inputs(Xs, half, dx):
+    """The float32-by-spec inputs of the voting layer and of the cell decode,
+    from `center_cloud`'s outputs in the pipeline's type: one contiguous
+    float32 copy of the centred cloud, and `half` and `dx` cast after being
+    computed in that type.  No-ops in float32."""
+    return (Xs.to(torch.float32).contiguous(), half.to(torch.float32),
+            dx.to(torch.float32))
+
+
 def extract_lines(points: torch.Tensor, valid: torch.Tensor,
                   cfg: PipelineConfig, dir_tables: tuple | None = None,
                   voting: Voting = KERNELS) -> HoughResult:
     """Run the iterative Hough extraction on one pre-filtered cloud.
 
     Args:
-      points: (N, 3) float32 cloud (drone frame, post voxel grid).
+      points: (N, 3) float32 or float64 cloud (drone frame, post voxel grid);
+        its type is the type of every stage that is not float32 by spec.
       valid:  (N,) bool validity mask.
       cfg: the pipeline config; its voting_mode picks carry or lazy.
-      dir_tables: (dirs, c1, c2) float32 tensors on the points' device, as
-        `direction_tables` gives them; built from the config when None.
+      dir_tables: (dirs, c1, c2) on the points' device, as
+        `direction_tables(granularity, device, points.dtype)` gives them;
+        built from the config when None.
       voting: the voting functions, KERNELS (default) or PLAIN.
     """
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError("the PyTorch port runs float32 only")
     dev = points.device
     N = points.shape[0]
     L = cfg.max_lines
     dt = points.dtype
     if dir_tables is None:
-        dir_tables = direction_tables(cfg.granularity, dev)
+        dir_tables = direction_tables(cfg.granularity, dev, dt)
+    if dir_tables[0].dtype != dt:
+        # a float64 run must not take its directions through float32
+        raise ValueError(f"direction table is {dir_tables[0].dtype}, the cloud "
+                         f"{dt}: build it with direction_tables(g, device, {dt})")
+    if dir_tables[1].dtype != torch.float32 or dir_tables[2].dtype != torch.float32:
+        raise ValueError("the plane bases c1 and c2 must be float32")
     dirs, c1, c2 = _pad_dirs_to_tile(*dir_tables)
     B = dirs.shape[0]
     NX = cfg.num_x_max
@@ -232,6 +258,7 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
     rs_max = max(cfg.radius_sizes)
 
     Xs, shift, d, half, num_x = center_cloud(points, valid, dx)
+    Xv, half32, dx32 = vote_inputs(Xs, half, dx)
 
     degenerate = (valid.sum() == 0) | (d == 0.0)
     dx_too_large = ~degenerate & (dx >= d)
@@ -246,8 +273,8 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
 
     def vstate_init(active0):
         if lazy:
-            return voting.vote_state(Xs, active0, c1, c2, half, dx, num_x, NX)
-        v0 = voting.vote_histogram(Xs, active0, c1, c2, half, dx, num_x, NX)
+            return voting.vote_state(Xv, active0, c1, c2, half32, dx32, num_x, NX)
+        v0 = voting.vote_histogram(Xv, active0, c1, c2, half32, dx32, num_x, NX)
         return v0, v0.amax(dim=(1, 2))
 
     def vstate_winner(vs):
@@ -272,8 +299,8 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
         idx.index_copy_(0, spos, torch.arange(B, device=dev))
         idx = idx[:cap]
         idx_c = torch.clamp_max(idx, B - 1)
-        bs, ks, us = voting.vote_state(Xs, active_next, c1[idx_c].contiguous(),
-                                       c2[idx_c].contiguous(), half, dx, num_x, NX)
+        bs, ks, us = voting.vote_state(Xv, active_next, c1[idx_c].contiguous(),
+                                       c2[idx_c].contiguous(), half32, dx32, num_x, NX)
         return (scatter_rows(best, idx, bs), scatter_rows(key, idx, ks),
                 scatter_rows(ub, idx, us))
 
@@ -284,7 +311,7 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
             return vstate_init(active_next)
         if lazy:
             best, key, ub = vs
-            keys_r = _removed_cell_keys(Xs, c1, c2, half, dx, num_x, m2, n_rem, NX)
+            keys_r = _removed_cell_keys(Xv, c1, c2, half32, dx32, num_x, m2, n_rem, NX)
             best = best - (keys_r == key[:, None]).sum(dim=1, dtype=torch.int32)
             suspect = ub >= best.max()           # other cells could win
             n_sus = int(suspect.sum())           # host read: picks the tier
@@ -294,9 +321,9 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
                 return exam((best, key, ub), suspect, s_cap, active_next)
             return vstate_init(active_next)
         votes, _ = vs
-        Xr = _compact_removed(Xs, m2, n_rem).contiguous()
+        Xr = _compact_removed(Xv, m2, n_rem).contiguous()
         all_live = torch.ones(n_rem, dtype=torch.bool, device=dev)
-        vn = votes - voting.vote_histogram(Xr, all_live, c1, c2, half, dx,
+        vn = votes - voting.vote_histogram(Xr, all_live, c1, c2, half32, dx32,
                                            num_x, NX)
         return vn, vn.amax(dim=(1, 2))
 
@@ -315,10 +342,10 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
         b_win, cell_win = vstate_winner(vstate)
         xi = (cell_win // NX).to(torch.float32)
         yi = (cell_win % NX).to(torch.float32)
-        xc = (xi + 0.5) * dx - half
-        yc = (yi + 0.5) * dx - half
+        xc = (xi + 0.5) * dx32 - half32
+        yc = (yi + 0.5) * dx32 - half32
         b0, c1row, c2row = _row(dirs, b_win), _row(c1, b_win), _row(c2, b_win)
-        a0 = xc * c1row + yc * c2row
+        a0 = (xc * c1row + yc * c2row).to(dt)
 
         # refinement #1: the direction is renormalised first, as the oracle's
         # points_close_to_line does, and the sqrt'd distance compared to dx

@@ -11,6 +11,12 @@ Shapes and types at every public function:
   Xs (N, 3) float32 shifted coordinates; active (N,) bool;
   c1, c2 (B, 3) float32 plane bases; half, dx 0-dim float32 tensors;
   num_x 0-dim int32 tensor; num_x_static a Python int (NX).
+
+The bins are float32 by spec in both compute types.  In the float64 parity
+mode the caller (ops/hough.py) hands every function here one contiguous
+float32 copy of the centred cloud and float32 ``half`` and ``dx``, so the
+kernels and their plain versions see the same values; there is no float64
+kernel, and a float64 tensor on the card is refused, not converted.
 """
 
 from __future__ import annotations

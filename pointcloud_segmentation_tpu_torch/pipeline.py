@@ -69,15 +69,19 @@ def height_cutoff(segs: SegmentBatch, floor_trim_height: float) -> SegmentBatch:
     return segs._replace(valid=segs.valid & keep)
 
 
-def process_frame(state: WorldState, raw_points: torch.Tensor,
-                  position: torch.Tensor, quat_wxyz: torch.Tensor,
-                  cfg: PipelineConfig, dir_tables: tuple | None = None,
-                  voting: Voting = KERNELS) -> tuple[WorldState, FrameOutput]:
-    """One full frame.  raw_points: (N_raw, 3) float32, NaN = invalid return;
-    every tensor on the world state's device."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError("the PyTorch port runs float32 only")
-    raw_points = raw_points.to(torch.float32)
+def compute_dtype(cfg: PipelineConfig) -> torch.dtype:
+    """The pipeline's float type: float32, or float64 in the parity mode (the
+    float32-by-spec stages stay float32, see ops/hough.py)."""
+    return torch.float64 if cfg.compute_dtype == "float64" else torch.float32
+
+
+def frame_segments(raw_points: torch.Tensor, position: torch.Tensor,
+                   quat_wxyz: torch.Tensor, cfg: PipelineConfig,
+                   dir_tables: tuple | None = None, voting: Voting = KERNELS):
+    """The per-frame stages, which touch no world state: filter -> Hough ->
+    drone-to-world transform -> floor cutoff.  Returns (filtered, fvalid,
+    fcount, hough result, world-frame segments)."""
+    raw_points = raw_points.to(compute_dtype(cfg))
     filtered, fvalid, fcount = preprocess(raw_points, cfg)
     hough = extract_lines(filtered, fvalid, cfg, dir_tables, voting)
 
@@ -86,6 +90,17 @@ def process_frame(state: WorldState, raw_points: torch.Tensor,
         frame_segs = surface_offset_correction(frame_segs)
     segs = transform_segments(frame_segs, position, quat_wxyz)
     segs = height_cutoff(segs, cfg.floor_trim_height)
+    return filtered, fvalid, fcount, hough, segs
+
+
+def process_frame(state: WorldState, raw_points: torch.Tensor,
+                  position: torch.Tensor, quat_wxyz: torch.Tensor,
+                  cfg: PipelineConfig, dir_tables: tuple | None = None,
+                  voting: Voting = KERNELS) -> tuple[WorldState, FrameOutput]:
+    """One full frame.  raw_points: (N_raw, 3), NaN = invalid return, cast to
+    the config's compute_dtype; every tensor on the world state's device."""
+    filtered, fvalid, fcount, hough, segs = frame_segments(
+        raw_points, position, quat_wxyz, cfg, dir_tables, voting)
 
     state, slots = world_step(state, segs, cfg)
 
@@ -97,7 +112,56 @@ def process_frame(state: WorldState, raw_points: torch.Tensor,
     return state, out
 
 
+def process_frame_packed(state: WorldState, raw_points: torch.Tensor,
+                         position: torch.Tensor, quat_wxyz: torch.Tensor,
+                         cfg: PipelineConfig, dir_tables: tuple | None = None,
+                         voting: Voting = KERNELS):
+    """`process_frame`, also returning the frame's host-bound scalars
+    (world_count, nlines, status, overflow) as one (4,) int32 tensor, so the
+    runtime reads the host once per frame.  Twin of the JAX package's
+    `make_process_frame_packed`."""
+    state, out = process_frame(state, raw_points, position, quat_wxyz, cfg,
+                               dir_tables, voting)
+    scalars = torch.stack([out.world_count, out.nlines, out.status, out.overflow])
+    return state, out, scalars
+
+
+def batched_process(state: WorldState, clouds: torch.Tensor,
+                    positions: torch.Tensor, quats: torch.Tensor,
+                    cfg: PipelineConfig, dir_tables: tuple | None = None,
+                    voting: Voting = KERNELS):
+    """A chunk of F frames in one call: the per-frame stages for each frame,
+    then the order-dependent world fusion (node.cpp:491-510) in frame order.
+    Twin of the JAX package's `make_batched_process`, which vmaps the
+    per-frame stages and scans the fusion.  PyTorch has no vmap over the
+    Hough loop, whose trip count and branches depend on the data, so the
+    frames run in a Python loop: the same operations in the same order as F
+    calls of `process_frame`, hence the same world state bit for bit.  What
+    the chunk saves is host reads: the per-frame scalars come back as four
+    tensors of length F, which the caller reads once per chunk.
+
+    clouds (F, N_raw, 3), positions (F, 3), quats (F, 4) -> (state', nlines
+    (F,), statuses (F,), world_counts (F,), the world size after each frame's
+    fusion, overflows (F,), segments dropped at max_world_segments, D-CAP),
+    all int32 on the state's device.
+    """
+    per_frame = [frame_segments(clouds[i], positions[i], quats[i], cfg,
+                                dir_tables, voting)
+                 for i in range(clouds.shape[0])]
+    nlines, statuses, counts, overflows = [], [], [], []
+    for _, _, _, hough, segs in per_frame:
+        state, slots = world_step(state, segs, cfg)
+        nlines.append(hough.nlines)
+        statuses.append(hough.status)
+        counts.append(state.count)
+        overflows.append((segs.valid & (slots == -1)).sum().to(torch.int32))
+    return (state, torch.stack(nlines), torch.stack(statuses),
+            torch.stack(counts), torch.stack(overflows))
+
+
 __all__ = [
     "FrameOutput", "WorldState", "init_world", "process_frame",
+    "process_frame_packed", "batched_process", "frame_segments",
     "transform_segments", "height_cutoff", "surface_offset_correction",
+    "compute_dtype",
 ]

@@ -11,10 +11,15 @@ the device, one timing record per frame, and the three reference CSVs on
     load, as the reference's SharedData slot does (node.cpp:167-173,
     267-276).
 
-The device defaults to "cuda" and is never guessed: "cuda" without a CUDA
-device raises, so nothing carries on on the CPU unnoticed.  The CPU runs
-only when the caller asks for it (``device="cpu"``), with the plain PyTorch
-versions of the kernels.
+Backends: "torch" (the default: the PyTorch pipeline with the CUDA kernels)
+or "oracle" (the port's copy of the numpy reference, oracle/pipeline.py, on
+the host: it needs no card, touches no CUDA and builds no kernel).
+
+The torch backend's device defaults to "cuda" and is never guessed: "cuda"
+without a CUDA device raises, so nothing carries on on the CPU unnoticed.
+The CPU runs only when the caller asks for it (``device="cpu"``), with the
+plain PyTorch versions of the kernels.  The pipeline's float type is the
+config's ``compute_dtype``: float32, or float64 in the parity mode.
 
 Every frame of the streaming worker reads its four scalars (world count,
 nlines, status, overflow) once, as the synchronous path does.  The Hough
@@ -39,11 +44,12 @@ import torch
 
 from .. import _build
 from ..config import VERBOSE_INFO, VERBOSE_NONE, PipelineConfig
-from ..convert import (read_checkpoint, world_state_from_numpy,
-                       world_state_to_numpy, write_checkpoint)
+from ..convert import (read_checkpoint, read_oracle_checkpoint,
+                       world_state_from_numpy, world_state_to_numpy,
+                       write_checkpoint, write_oracle_checkpoint)
 from ..geometry import quat_to_rot
 from ..ops.hough import KERNELS, Voting, direction_tables
-from ..pipeline import process_frame
+from ..pipeline import batched_process, compute_dtype, process_frame_packed
 from ..worldmap import init_world
 from . import csvio
 from .mailbox import LatestWinsMailbox
@@ -91,6 +97,13 @@ def _waterfill_quotas(lens, cap):
     return quota
 
 
+def _cap_points_per_slot(arrs, cap):
+    """Waterfill `cap` across per-segment arrays, keeping each slot's newest
+    points."""
+    quota = _waterfill_quotas([len(a) for a in arrs], cap)
+    return [a[len(a) - q:] for a, q in zip(arrs, quota) if q]
+
+
 def _tail_points(chunks, q):
     """Newest `q` points from a slot's chunk list (per-frame appended
     arrays), touching only the tail chunks actually needed: the accumulated
@@ -118,6 +131,7 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 class SegmentationEngine:
     def __init__(self, cfg: PipelineConfig, device="cuda", voting: Voting = KERNELS,
+                 backend: str = "torch",
                  collect_inlier_points: bool = False,
                  checkpoint_every: int = 0,
                  checkpoint_path: Optional[str] = None,
@@ -128,6 +142,9 @@ class SegmentationEngine:
         (default) or ops.hough.PLAIN, the plain PyTorch versions of the
         kernels, which `chip_smoke.py` runs on the card to hold the kernels
         against.
+
+        backend: "torch" (default) or "oracle", the numpy reference on the
+        host, which ignores `device` and `voting` and needs no card.
 
         checkpoint_every / checkpoint_path: save a checkpoint every this
         many processed frames (0: never).
@@ -147,9 +164,10 @@ class SegmentationEngine:
         ``collect_inlier_points`` too for that (the newest 4096 points of a
         record, shared fairly across segments), else ``hough_points`` holds
         the current frame's accepted inliers only (node.cpp:833-841)."""
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError("the PyTorch port runs float32 only")
-        self.device = torch.device(device)
+        if backend not in ("torch", "oracle"):
+            raise ValueError(f"unknown backend {backend!r}")
+        self.backend = backend
+        self.device = torch.device("cpu" if backend == "oracle" else device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError(f"device {device!r} asked for, but "
@@ -199,8 +217,17 @@ class SegmentationEngine:
         # configuration dump, as the node logs at startup (node.cpp:245-257)
         if cfg.verbose_level > VERBOSE_NONE:
             logger.info("Configuration: %s", json.dumps(cfg.to_dict()))
-        self._tables = direction_tables(cfg.granularity, self.device)
-        self._state = init_world(cfg, self.device)
+        self._dtype = compute_dtype(cfg)
+        self._npdt = np.float64 if cfg.compute_dtype == "float64" else np.float32
+        if backend == "oracle":
+            from .. import oracle
+
+            self._oracle = oracle
+            self._wm = oracle.WorldMap(cfg)
+            self._tables = self._state = None
+        else:
+            self._tables = direction_tables(cfg.granularity, self.device, self._dtype)
+            self._state = init_world(cfg, self.device)
 
     def _on_device(self):
         """Make the engine's card current for the calling thread: the kernels
@@ -223,24 +250,46 @@ class SegmentationEngine:
 
     # ---------------------------------------------------------------- core
 
-    def _pad_raw(self, points: np.ndarray) -> torch.Tensor:
+    def _pad_raw_host(self, points: np.ndarray) -> np.ndarray:
+        """(max_raw_points, 3) in the compute type, NaN rows past the cloud."""
         n_raw = self.cfg.shapes.max_raw_points
-        pts = np.asarray(points, dtype=np.float32).reshape(-1, 3)
-        out = np.full((n_raw, 3), np.nan, dtype=np.float32)
+        pts = np.asarray(points, dtype=self._npdt).reshape(-1, 3)
+        out = np.full((n_raw, 3), np.nan, dtype=self._npdt)
         k = min(len(pts), n_raw)
         out[:k] = pts[:k]
-        return torch.from_numpy(out).to(self.device)
+        return out
+
+    def _pad_raw(self, points: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(self._pad_raw_host(points)).to(self.device)
 
     def _dispatch(self, points, position, quat):
         """One frame's step on the world state; caller holds _state_lock and
-        the device.  Returns the frame's FrameOutput."""
+        the device.  Returns the frame's FrameOutput and its four host-bound
+        scalars as one tensor."""
         dev = self.device
-        self._state, out = process_frame(
+        self._state, out, scalars = process_frame_packed(
             self._state, self._pad_raw(points),
-            torch.as_tensor(position, dtype=torch.float32).to(dev),
-            torch.as_tensor(quat, dtype=torch.float32).to(dev),
+            torch.as_tensor(position, dtype=self._dtype).to(dev),
+            torch.as_tensor(quat, dtype=self._dtype).to(dev),
             self.cfg, self._tables, self.voting)
-        return out
+        return out, scalars
+
+    def _process_oracle(self, points, position, quat):
+        """One frame through the numpy oracle; caller holds _state_lock, which
+        gives readers of the oracle's world map a consistent view.  Returns
+        (world_count, nlines, status, frame points or None)."""
+        pts = np.asarray(points, np.float64).reshape(-1, 3)
+        res = self._oracle.process_frame(self._wm, pts, np.asarray(position),
+                                         np.asarray(quat), self.cfg)
+        frame_points = None
+        if self._viz_stream is not None and self._viz_points:
+            filtered = self._oracle.cloud_filtering(pts, self.cfg)
+            accepted = [s.points for s in res.segments_in_frame if len(s.points)]
+            frame_points = {
+                "filtered": filtered @ _rotation(quat).T + np.asarray(position),
+                "hough": (np.concatenate(accepted, axis=0) if accepted
+                          else np.zeros((0, 3)))}
+        return len(self._wm.segments), res.nblines, res.status, frame_points
 
     def process_frame(self, t: float, points: np.ndarray) -> Optional[dict]:
         """Synchronously process one cloud.  Returns the per-frame record, or
@@ -256,14 +305,18 @@ class SegmentationEngine:
         start = time.perf_counter()
         frame_points = None
         with self._state_lock, self._on_device():
-            out = self._dispatch(points, position, quat)
-            # one device->host read per frame, which also waits for the frame
-            wc, nl, st, overflow = torch.stack([
-                out.world_count, out.nlines, out.status, out.overflow]).tolist()
-            if self.collect_inlier_points:
-                self._collect_points(out, position, quat)
-            if self._viz_stream is not None and self._viz_points:
-                frame_points = self._frame_points_of(out, position, quat)
+            if self.backend == "oracle":
+                # the oracle's world map grows without a capacity: no D-CAP
+                overflow = 0
+                wc, nl, st, frame_points = self._process_oracle(points, position, quat)
+            else:
+                out, scalars = self._dispatch(points, position, quat)
+                # one device->host read per frame, which also waits for the frame
+                wc, nl, st, overflow = scalars.tolist()
+                if self.collect_inlier_points:
+                    self._collect_points(out, position, quat)
+                if self._viz_stream is not None and self._viz_points:
+                    frame_points = self._frame_points_of(out, position, quat)
             end = time.perf_counter()
             record = {
                 "wall_time": (end - self._program_start) * 1e6,
@@ -375,22 +428,32 @@ class SegmentationEngine:
             rec["filtered_points"] = np.round(
                 frame_points["filtered"][:cap], 4).tolist()
             if self.collect_inlier_points:
-                # the newest points of every slot, the cap shared fairly: a
-                # tail of the slot-ordered concatenation would starve the
-                # low-numbered segments once the total passes the cap
-                slot_lists = [lst for lst in self._inlier_points.values() if lst]
-                lens = [sum(len(a) for a in lst) for lst in slot_lists]
-                quotas = _waterfill_quotas(lens, cap)
-                parts = [_tail_points(lst, q)
-                         for lst, q in zip(slot_lists, quotas) if q]
-                acc = (np.concatenate(parts, axis=0) if parts
-                       else np.zeros((0, 3)))
+                acc = self._accumulated_inliers(cap)
                 rec["hough_points"] = np.round(acc, 4).tolist()
                 rec["hough_points_world_accumulated"] = True
             else:
                 rec["hough_points"] = np.round(
                     frame_points["hough"][:cap], 4).tolist()
         self._write_viz_record(rec)
+
+    def _accumulated_inliers(self, cap: int) -> np.ndarray:
+        """The newest accumulated inlier points of every world slot, `cap` in
+        all, shared fairly: a tail of the slot-ordered concatenation would
+        starve the low-numbered segments once the total passes the cap."""
+        if self.backend == "oracle":
+            # the oracle's Segment.points are the accumulated world-frame
+            # inlier store: republish straight from it
+            with self._state_lock:
+                arrs = [np.asarray(s.points) for s in self._wm.segments
+                        if len(s.points)]
+            parts = _cap_points_per_slot(arrs, cap)
+        else:
+            slot_lists = [lst for lst in self._inlier_points.values() if lst]
+            lens = [sum(len(a) for a in lst) for lst in slot_lists]
+            quotas = _waterfill_quotas(lens, cap)
+            parts = [_tail_points(lst, q)
+                     for lst, q in zip(slot_lists, quotas) if q]
+        return np.concatenate(parts, axis=0) if parts else np.zeros((0, 3))
 
     def _write_viz_record(self, rec: dict) -> None:
         """Deliver one viz record to the callable or append it to the JSONL.
@@ -410,19 +473,84 @@ class SegmentationEngine:
         self._viz_file.write(json.dumps(rec) + "\n")
         self._viz_file.flush()
 
-    def run_replay(self, frames, pipelined: bool = False) -> List[dict]:
+    def run_replay(self, frames, pipelined: bool = False,
+                   batch: int = 0) -> List[dict]:
         """Process every frame of an io.simulator replay (poses auto-pushed).
 
         pipelined=True runs the same synchronous loop, as the JAX engine does
         off its jax backend: the Hough loop reads the host every round, so
-        there is no per-frame read left to defer."""
+        there is no per-frame read left to defer.
+
+        batch=k>1 (torch backend only; the oracle backend runs frame by
+        frame): frames go through `pipeline.batched_process` in chunks of k,
+        the per-frame scalars read once per chunk.  The world map is the
+        synchronous replay's bit for bit; `processing_time` is the chunk's
+        time shared evenly among its frames, and no checkpoint, viz record
+        or inlier store is made on this path."""
         del pipelined
+        if batch > 1 and self.backend == "torch":
+            return self._run_replay_batched(frames, batch)
         out = []
         for fr in frames:
             self.push_pose(fr.t, fr.position, fr.quat_wxyz)
             rec = self.process_frame(fr.t, fr.points)
             if rec is not None:
                 out.append(rec)
+        return out
+
+    def _run_replay_batched(self, frames, batch: int) -> List[dict]:
+        if self._program_start is None:
+            self._program_start = time.perf_counter()
+        dev = self.device
+        out = []
+        for c0 in range(0, len(frames), batch):
+            chunk = frames[c0: c0 + batch]
+            # a short last chunk and a frame without a pose stay NaN clouds:
+            # degenerate frames, which leave the world map as it is
+            clouds = np.full((batch, self.cfg.shapes.max_raw_points, 3),
+                             np.nan, self._npdt)
+            poss = np.zeros((batch, 3), self._npdt)
+            quats = np.zeros((batch, 4), self._npdt)
+            quats[:, 0] = 1.0
+            live = []
+            for i, fr in enumerate(chunk):
+                self.push_pose(fr.t, fr.position, fr.quat_wxyz)
+                pose = self.poses.lookup(fr.t)
+                if pose is None:
+                    self.frames_skipped_no_pose += 1
+                    continue
+                clouds[i] = self._pad_raw_host(fr.points)
+                poss[i], quats[i] = pose
+                live.append(i)
+            start = time.perf_counter()
+            with self._state_lock, self._on_device():
+                self._state, nlines, statuses, counts, overflows = batched_process(
+                    self._state, torch.from_numpy(clouds).to(dev),
+                    torch.from_numpy(poss).to(dev), torch.from_numpy(quats).to(dev),
+                    self.cfg, self._tables, self.voting)
+                # one device->host read per chunk
+                nl, st, wc, ov = torch.stack(
+                    [nlines, statuses, counts, overflows]).tolist()
+                end = time.perf_counter()
+                per = (end - start) / max(len(live), 1)
+                for i in live:
+                    rec = {
+                        "wall_time": (end - self._program_start) * 1e6,
+                        "processing_time": per * 1e6,
+                        "seg_vec_size": wc[i],
+                        "nblines": nl[i],
+                    }
+                    self.records.append(rec)
+                    out.append(dict(rec, status=st[i], t=chunk[i].t))
+                    self.frames_processed += 1
+                # D-CAP accounting, as on the synchronous path
+                full = [ov[i] for i in live if ov[i] > 0]
+                self.world_overflow_frames += len(full)
+            if full:
+                logger.warning(
+                    "world map full (max_world_segments=%d): dropped %d "
+                    "segment(s) across %d frame(s) (D-CAP)",
+                    self.cfg.shapes.max_world_segments, sum(full), len(full))
         return out
 
     # ---------------------------------------------------------------- streaming
@@ -585,10 +713,16 @@ class SegmentationEngine:
 
     @property
     def state(self):
-        """The world map on the device (a WorldState of tensors)."""
+        """The world map on the device (a WorldState of tensors); None for
+        the oracle backend, whose map is a list of segments on the host."""
         return self._state
 
     def _world_snapshot_locked(self) -> Tuple[List[dict], List[tuple]]:
+        if self.backend == "oracle":
+            segs = [{"a": s.a, "b": s.b, "t_min": s.t_min, "t_max": s.t_max,
+                     "radius": s.radius, "points_size": s.points_size,
+                     "pca_coeff": s.pca_coeff} for s in self._wm.segments]
+            return segs, self._wm.intersections_rows()
         st = self._state
         n = int(st.count)
         f = {k: _host(getattr(st, k)[:n])
@@ -644,7 +778,12 @@ class SegmentationEngine:
         if include_points and self.collect_inlier_points:
             # the worker appends chunks under the lock
             with self._state_lock:
-                if self._inlier_points:
+                if self.backend == "oracle":
+                    pts = {k: np.asarray(s.points)
+                           for k, s in enumerate(self._wm.segments) if len(s.points)}
+                    if pts:
+                        out["hough_points"] = pts
+                elif self._inlier_points:
                     out["hough_points"] = {
                         k: np.concatenate(v, axis=0)
                         for k, v in self._inlier_points.items()}
@@ -654,21 +793,35 @@ class SegmentationEngine:
 
     def save_checkpoint(self, path: str) -> None:
         """Write the world map, the records and the counters to one npz
-        (convert.write_checkpoint, backend "torch"): checkpoint and resume,
-        which the reference, whose map lives only in RAM, lacks."""
+        (convert.write_checkpoint, backend "torch", or
+        convert.write_oracle_checkpoint): checkpoint and resume, which the
+        reference, whose map lives only in RAM, lacks."""
         with self._state_lock:
-            state = world_state_to_numpy(self._state)
             records = list(self.records)
             frames, overflow = self.frames_processed, self.world_overflow_frames
+            if self.backend == "oracle":
+                # written under the lock: the oracle's map mutates in place
+                write_oracle_checkpoint(path, self._wm, frames, records, overflow)
+                return
+            state = world_state_to_numpy(self._state)
         write_checkpoint(path, state, frames, records, overflow)
 
     def load_checkpoint(self, path: str) -> None:
-        """Resume the world map, records and counters from a checkpoint of
-        the port or of the JAX engine (an oracle checkpoint raises)."""
-        data = read_checkpoint(path)
-        state = world_state_from_numpy(data, self.device)
+        """Resume the world map, records and counters.  The torch backend
+        reads a checkpoint of the port or of the JAX engine in its own
+        compute type; the oracle backend reads an oracle checkpoint of either
+        package.  Anything else raises ValueError."""
+        if self.backend == "oracle":
+            data = read_oracle_checkpoint(path)
+        else:
+            data = read_checkpoint(path, self.cfg.compute_dtype)
+            state = world_state_from_numpy(data, self.device, self._dtype)
         with self._state_lock:
-            self._state = state
+            if self.backend == "oracle":
+                self._wm.segments = data["segments"]
+                self._wm.inter = data["inter"]
+            else:
+                self._state = state
             self.frames_processed = data["frames_processed"]
             self.records = [
                 {"wall_time": r[0], "processing_time": r[1],

@@ -41,12 +41,14 @@ class WorldState(NamedTuple):
         return self.a.shape[0]
 
 
-def init_world(cfg: PipelineConfig, device) -> WorldState:
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError("the PyTorch port runs float32 only")
+def init_world(cfg: PipelineConfig, device, dtype=None) -> WorldState:
+    """An empty world map on `device`; its float type is `dtype`, or the
+    config's compute_dtype when None."""
+    if dtype is None:
+        dtype = torch.float64 if cfg.compute_dtype == "float64" else torch.float32
     S = cfg.shapes.max_world_segments
 
-    def z(*shape, dt=torch.float32):
+    def z(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
 
     return WorldState(
@@ -54,7 +56,7 @@ def init_world(cfg: PipelineConfig, device) -> WorldState:
         points_size=z(S, dt=torch.int32), pca_coeff=z(S),
         pca_eigenvalues=z(S, 3), valid=z(S, dt=torch.bool),
         count=z(dt=torch.int32),
-        inter=torch.full((S, S, 2), -1.0, device=device))
+        inter=torch.full((S, S, 2), -1.0, dtype=dtype, device=device))
 
 
 def _endpoints(a, b, t_min, t_max):
@@ -185,6 +187,56 @@ def fuse_frame(state: WorldState, segs: SegmentBatch, cfg: PipelineConfig):
     new_flags = _drop_flags(S, torch.where(can_append, k, S), dev)
     valid = state.valid | new_flags
     return new, count, valid, modified, new_flags, slot
+
+
+def fuse_frame_sequential(state: WorldState, segs: SegmentBatch,
+                          cfg: PipelineConfig):
+    """The literal sequential fusion loop (node.cpp:491-510 semantics), twin
+    of the JAX package's `fuse_frame_sequential`: the executable spec that
+    `fuse_frame` is held against bit for bit.  Not on the main path.  Every
+    decision is a `torch.where` on a device flag; nothing reads the host.
+    Same return as `fuse_frame`."""
+    S = state.capacity
+    L = segs.capacity
+    dev = state.a.device
+
+    old = {k: getattr(state, k) for k in _FUSE_KEYS}
+    old_valid = state.valid
+    new = dict(old)
+    count = state.count
+    modified = torch.zeros(S, dtype=torch.bool, device=dev)
+    new_flags = torch.zeros(S, dtype=torch.bool, device=dev)
+    slots = torch.full((L,), -1, dtype=torch.int32, device=dev)
+
+    iota = torch.arange(S, device=dev)
+
+    def set_row(arr, at, row):
+        """arr with arr[s] = row where the (S,) bool `at` is set."""
+        return torch.where(at.reshape((S,) + (1,) * (arr.dim() - 1)), row, arr)
+
+    for i in range(L):
+        d = {k: getattr(segs, k)[i:i + 1] for k in _FUSE_KEYS}
+        dvalid = segs.valid[i]
+        sim, fused = _similarity_one(cfg, d, old)   # match vs frame-start world
+        sim = sim[0] & old_valid
+        found = sim.any() & dvalid
+        j = torch.argmax(sim.to(torch.int8))
+        at_j = (iota == j) & found                  # fuse in place at j
+
+        can_append = dvalid & ~found & (count < S)  # or append at `count`
+        k = torch.clamp_max(count, S - 1)
+        at_k = (iota == k) & can_append
+
+        for key in _FUSE_KEYS:
+            # row s of fused[key][0] is the fusion with world slot s
+            new[key] = set_row(set_row(new[key], at_j, fused[key][0]),
+                               at_k, d[key][0])
+        modified = modified | at_j
+        new_flags = new_flags | at_k
+        slots[i] = torch.where(found, j, torch.where(can_append, k, -1))
+        count = count + can_append.to(torch.int32)
+    valid = old_valid | new_flags
+    return new, count, valid, modified, new_flags, slots
 
 
 def update_intersections(state_fields: dict, valid, inter_old, touched,

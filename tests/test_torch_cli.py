@@ -201,3 +201,56 @@ def test_cli_serve_as_a_module(tmp_path):
     assert json.loads(rest.strip().splitlines()[-1]) == reply
     with open(reply["outputs"]["segments"]) as f:
         assert f.readline().strip() == HEADERS["segments.csv"]
+
+
+# ------------------------------------------------------------------ parity stack
+
+def test_cli_backend_oracle_equals_the_jax_cli(tmp_path):
+    """`run --backend oracle` needs no card and no --device, and writes the
+    JAX CLI's oracle CSVs byte for byte; `stream --backend oracle` runs the
+    worker on the oracle."""
+    args = ["--granularity", "2", *TRAJ, "--max-frames", "4"]
+    t_out, j_out = str(tmp_path / "t"), str(tmp_path / "j")
+    rc, text, _ = port("run", "--backend", "oracle", "--out", t_out, *args)
+    jrc, jtext, _ = call(JCLI.main, "run", "--backend", "oracle", "--out", j_out, *args)
+    assert rc == jrc == 0
+    assert text.splitlines()[0] == jtext.splitlines()[0]
+    for name in ("segments.csv", "intersections.csv"):
+        with open(os.path.join(t_out, name), "rb") as a, \
+                open(os.path.join(j_out, name), "rb") as b:
+            assert a.read() == b.read(), name
+    assert len(read_segments_csv(os.path.join(t_out, "segments.csv"))) >= 3
+
+    log = str(tmp_path / "frames.pcsl")
+    assert port("record", log, *TRAJ, "--max-frames", "3")[0] == 0
+    rc, text, _ = port("stream", log, "--granularity", "2", "--backend", "oracle",
+                       "--out", str(tmp_path / "s"), "--rate", "0")
+    assert rc == 0 and text.startswith("fed 3 frames")
+    with pytest.raises(SystemExit):
+        port("run", "--backend", "jax", "--max-frames", "1")
+
+
+def test_cli_runs_a_float64_yaml_end_to_end(tmp_path):
+    """A YAML with compute_dtype: float64 runs the parity mode: its segments
+    are the oracle's within 1e-4, which the float32 run's are not bound to."""
+    cfg = tmp_path / "f64.yaml"
+    cfg.write_text("granularity: 2\ncompute_dtype: float64\n")
+    args = [*TRAJ, "--max-frames", "4", "--config", str(cfg)]
+    out, ref = str(tmp_path / "f64"), str(tmp_path / "oracle")
+    rc, text, _ = port("run", "--device", "cpu", "--out", out, *args)
+    assert rc == 0 and text.startswith("4 frames ->")
+    assert port("run", "--backend", "oracle", "--out", ref, *args)[0] == 0
+    got = read_segments_csv(os.path.join(out, "segments.csv"))
+    want = read_segments_csv(os.path.join(ref, "segments.csv"))
+    assert len(got) == len(want) >= 3
+    for s, w in zip(got, want):
+        (p1, p2), (q1, q2) = endpoints(s), endpoints(w)
+        # the CSV keeps 6 significant digits
+        assert max(np.abs(p1 - q1).max(), np.abs(p2 - q2).max()) < 1e-4
+    from pointcloud_segmentation_tpu_torch.config import PipelineConfig
+
+    assert PipelineConfig.from_yaml(str(cfg)).compute_dtype == "float64"
+    bad = tmp_path / "bad.yaml"
+    bad.write_text("compute_dtype: float16\n")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        PipelineConfig.from_yaml(str(bad))

@@ -220,6 +220,13 @@ def test_precheck_statuses_match_jax(case):
 
 
 def test_float64_is_not_ported():
+    """It is ported now: the extraction follows the points' type, float64
+    clouds give float64 segments (tests/test_torch_f64.py holds them against
+    the oracle), and an empty float64 cloud is the degenerate status."""
     cfg = BASE.replace(compute_dtype="float64")
-    with pytest.raises(NotImplementedError):
-        extract_lines(torch.zeros(4, 3), torch.zeros(4, dtype=torch.bool), cfg)
+    res = extract_lines(torch.zeros(4, 3, dtype=torch.float64),
+                        torch.zeros(4, dtype=torch.bool), cfg)
+    assert res.segments.a.dtype == res.segments.pca_eigenvalues.dtype == torch.float64
+    assert (int(res.status), int(res.nlines)) == (1, 0)
+    res32 = extract_lines(torch.zeros(4, 3), torch.zeros(4, dtype=torch.bool), cfg)
+    assert res32.segments.a.dtype == torch.float32

@@ -2,11 +2,13 @@
 its copies of the JAX package's framework-free code (config, sphere,
 quat_to_rot, the scenes and the simulator, the replay codec, the mailbox,
 the pose buffer, the CSV writers, the intersection rows, the viz point
-helpers, eval and the server's wire format) give the same values as the
-originals."""
+helpers, eval, the server's wire format, the numpy oracle with its geometry
+helpers, and the parity soak's draws and bookkeeping) give the same values
+as the originals."""
 
 import ast
 import dataclasses
+import importlib.util
 import os
 import subprocess
 import sys
@@ -22,6 +24,7 @@ from pointcloud_segmentation_tpu.io import scene as JSC
 from pointcloud_segmentation_tpu.io import simulator as JSIM
 from pointcloud_segmentation_tpu.io import replay as JREP
 from pointcloud_segmentation_tpu import eval as JEVAL
+from pointcloud_segmentation_tpu import oracle as JORACLE
 from pointcloud_segmentation_tpu.runtime import csvio as JCSV
 from pointcloud_segmentation_tpu.runtime import engine as JENG
 from pointcloud_segmentation_tpu.runtime import server as JSRV
@@ -36,6 +39,8 @@ from pointcloud_segmentation_tpu_torch.io import scene as TSC
 from pointcloud_segmentation_tpu_torch.io import simulator as TSIM
 from pointcloud_segmentation_tpu_torch.io import replay as TREP
 from pointcloud_segmentation_tpu_torch import eval as TEVAL
+from pointcloud_segmentation_tpu_torch import oracle as TORACLE
+from pointcloud_segmentation_tpu_torch.oracle import _geometry as TOG
 from pointcloud_segmentation_tpu_torch.runtime import csvio as TCSV
 from pointcloud_segmentation_tpu_torch.runtime import engine as TENG
 from pointcloud_segmentation_tpu_torch.runtime import server as TSRV
@@ -65,19 +70,24 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
     assert int(out.stdout) >= 18
 
 
+def _forbidden(name: str) -> bool:
+    """The JAX package, or jax itself."""
+    return any(name == root or name.startswith(root + ".") for root in (JAX_PKG, "jax"))
+
+
 def jax_package_imports(src: str, rel_path: str) -> list:
-    """Every import of the JAX package in one source file at rel_path (from
-    the repo's root): absolute, relative that climbs out to the repo's root,
-    or by name through importlib.import_module / __import__."""
+    """Every import of the JAX package or of jax in one source file at
+    rel_path (from the repo's root): absolute, relative that climbs out to
+    the repo's root, or by name through importlib.import_module /
+    __import__."""
     depth = rel_path.count("/")      # packages between the root and the file
     hits = []
     for node in ast.walk(ast.parse(src)):
         if isinstance(node, ast.Import):
-            hits += [a.name for a in node.names
-                     if a.name == JAX_PKG or a.name.startswith(JAX_PKG + ".")]
+            hits += [a.name for a in node.names if _forbidden(a.name)]
         elif isinstance(node, ast.ImportFrom):
             mod = node.module or ""
-            if node.level == 0 and (mod == JAX_PKG or mod.startswith(JAX_PKG + ".")):
+            if node.level == 0 and _forbidden(mod):
                 hits.append(mod)
             elif node.level > depth:
                 hits.append("." * node.level + mod)
@@ -86,17 +96,19 @@ def jax_package_imports(src: str, rel_path: str) -> list:
             name = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
             arg = node.args[0]
             if (name in ("import_module", "__import__") and isinstance(arg, ast.Constant)
-                    and isinstance(arg.value, str)
-                    and (arg.value == JAX_PKG or arg.value.startswith(JAX_PKG + "."))):
+                    and isinstance(arg.value, str) and _forbidden(arg.value)):
                 hits.append(arg.value)
     return hits
 
 
 def test_no_source_of_the_port_imports_the_jax_package():
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tools", "parity_soak_torch.py")]
     for root, _, files in os.walk(PORT):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
-    assert len(paths) >= 19
+    assert len(paths) >= 23
+    rels = {os.path.relpath(p, PORT).replace(os.sep, "/") for p in paths}
+    assert {"oracle/__init__.py", "oracle/pipeline.py", "oracle/_geometry.py"} <= rels
     found = {}
     for p in paths:
         rel = os.path.relpath(p, REPO).replace(os.sep, "/")
@@ -112,12 +124,16 @@ def test_the_import_scan_sees_every_form():
            "from .. import sphere as s2\n"
            "from . import voting\n"
            "import pointcloud_segmentation_tpu_torch.config\n"
+           "import jaxtyping\n"
            "def f():\n"
            "    import importlib\n"
+           "    import jax.numpy as jnp\n"
+           "    from jax import lax\n"
            "    return importlib.import_module('pointcloud_segmentation_tpu.io')\n")
     hits = jax_package_imports(src, "pointcloud_segmentation_tpu_torch/ops/x.py")
-    assert hits == ["pointcloud_segmentation_tpu.config", "pointcloud_segmentation_tpu",
-                    "pointcloud_segmentation_tpu.io"], hits
+    assert sorted(hits) == sorted([
+        "pointcloud_segmentation_tpu.config", "pointcloud_segmentation_tpu",
+        "jax.numpy", "jax", "pointcloud_segmentation_tpu.io"]), hits
     hits = jax_package_imports(src, "pointcloud_segmentation_tpu_torch/x.py")
     assert ".." in hits
 
@@ -415,6 +431,109 @@ def _server_wire():
         JSRV.MSG_FRAME, JSRV.MSG_QUERY, JSRV.MSG_FINAL, JSRV.MSG_SNAP)
 
 
+def _code_without_imports_and_docstrings(path):
+    """ast.dump of a module with its imports and every docstring taken out
+    (comments are no part of the tree)."""
+    tree = ast.parse(open(path).read())
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if not isinstance(body, list):
+            continue
+        body[:] = [n for n in body if not isinstance(n, (ast.Import, ast.ImportFrom))]
+        if (body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            del body[0]
+    return ast.dump(tree)
+
+
+def _oracle_copy():
+    """The oracle's code is the original's but for imports and docstrings,
+    and a seeded replay gives the same segments and intersections, value for
+    value, with the same accumulated inlier points."""
+    for name in ("pipeline.py", "__init__.py"):
+        assert _code_without_imports_and_docstrings(
+            os.path.join(PORT, "oracle", name)) == _code_without_imports_and_docstrings(
+            os.path.join(REPO, JAX_PKG, "oracle", name)), name
+    assert TORACLE.__all__ == JORACLE.__all__
+    shapes = dict(max_raw_points=4096, max_points=2048, max_world_segments=32)
+    kw = dict(granularity=2, surface_offset_correction=True)
+    tcfg = TC.default_config(shapes=TC.StaticShapes(**shapes), **kw)
+    jcfg = JC.default_config(shapes=JC.StaticShapes(**shapes), **kw)
+    poses = TSC.trajectory_poses(TSC.WP_TESTS, hz=1.0, velocity=0.4)[:4]
+    frames = TSIM.simulate_trajectory(TSC.OBS_TESTS_SCENE, poses,
+                                      TSIM.TofSpec(noise_frac=0.002), seed=4)
+    tw, jw = TORACLE.WorldMap(tcfg), JORACLE.WorldMap(jcfg)
+    for f in frames:
+        tr = TORACLE.process_frame(tw, f.points, f.position, f.quat_wxyz, tcfg)
+        jr = JORACLE.process_frame(jw, f.points, f.position, f.quat_wxyz, jcfg)
+        assert (tr.nblines, tr.status) == (jr.nblines, jr.status)
+    assert len(tw.segments) == len(jw.segments) >= 3
+    for a, b in zip(tw.segments, jw.segments):
+        for f in dataclasses.fields(a):
+            assert np.array_equal(getattr(a, f.name), getattr(b, f.name)), f.name
+    assert tw.intersections_rows() == jw.intersections_rows()
+    assert (TORACLE.pipeline.STATUS_OK, TORACLE.pipeline.STATUS_DEGENERATE,
+            TORACLE.pipeline.STATUS_DX_TOO_LARGE, TORACLE.pipeline.STATUS_BX_ZERO) == (0, 1, 2, 3)
+
+
+def _oracle_geometry():
+    rng = np.random.default_rng(13)
+    a, b, p = rng.normal(size=(3, 40, 3))
+    for name in ("dot3", "find_proj", "point_line_distance"):
+        assert np.array_equal(getattr(TOG, name)(a, b, p) if name != "dot3"
+                              else TOG.dot3(a, b),
+                              getattr(JG, name)(a, b, p) if name != "dot3"
+                              else JG.dot3(a, b)), name
+    assert np.array_equal(TOG.norm3(a), JG.norm3(a))
+    assert np.array_equal(TOG.find_proj(a[0], b[0], p[0]), JG.find_proj(a[0], b[0], p[0]))
+    t0, t1 = rng.normal(size=(2, 40))
+    for got, want in zip(TOG.segment_endpoints(a, b, t0, t1),
+                         JG.segment_endpoints(a, b, t0, t1)):
+        assert np.array_equal(got, want)
+    for v in list(rng.normal(size=(20, 3))) + [np.array([0.0, -2.0, 1.0]),
+                                                np.array([0.0, 0.0, -1.0]), np.zeros(3)]:
+        assert np.array_equal(TOG.canonicalize_direction(v), JG.canonicalize_direction(v))
+    assert TOG.quat_to_rot is TG.quat_to_rot
+
+
+def _load_tool(name):
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(REPO, "tools", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _parity_soak():
+    """tools/parity_soak_torch.py draws the JAX soak's configs, scenes and
+    flights for the same seeds, and keeps its books the same way."""
+    jsoak, tsoak = _load_tool("parity_soak"), _load_tool("parity_soak_torch")
+    for mode in ("base", "g6", "sensor128"):
+        for f64 in (False, True):
+            jsoak.MODE, jsoak.F64 = mode, f64
+            for seed in range(3000, 3012):
+                rj, rt = np.random.default_rng(seed), np.random.default_rng(seed)
+                _same_config(tsoak.random_cfg(rt, mode, f64), jsoak.random_cfg(rj))
+                assert rt.random() == rj.random()       # as many draws
+    jsoak.MODE, jsoak.F64 = "base", False
+    cfg, frames = tsoak.random_case(2023)
+    assert (cfg.granularity, cfg.radius_sizes, cfg.opt_nlines) == (1, (0.03,), 0)
+    assert 4 <= len(frames) < 10 and frames[0].points.shape == (1024, 3)
+    batches = [{"n": 4, "counts": {"bx-knife-edge": 1}},
+               {"n": 6, "counts": {"real": 2, "bx-knife-edge": 1}}]
+    dj = dt = None
+    for b in batches:
+        dj, dt = jsoak.merge_batch(dj, b), tsoak.merge_batch(dt, b)
+    assert dj == dt and dt["totals"]["unexplained"] == 2
+    segs = [{"a": np.zeros(3), "b": np.array([1.0, 0, 0]), "t_min": 0.0, "t_max": 1.0,
+             "radius": 0.05}]
+    moved = [dict(segs[0], a=np.array([0.0, 0.2, 0.0]))]
+    assert tsoak.compare_worlds((segs, []), (segs, [])) == []
+    assert len(tsoak.compare_worlds((segs, [(1, 0.1, 0, 0.2)]), (moved + moved, []))) == 3
+    assert os.path.basename(tsoak.ARTIFACT) == "SOAK_torch.json"
+
+
 PARITY = {
     "config_default": _config_default, "config_yaml": _config_yaml,
     "config_grid": _config_grid, "hough_space": _hough_space,
@@ -423,8 +542,40 @@ PARITY = {
     "intersection_pairs": _intersection_pairs, "mailbox": _mailbox,
     "replay_codec": _replay_codec, "scenes_and_waypoints": _scenes,
     "viz_point_helpers": _viz_point_helpers, "eval": _eval,
-    "server_wire": _server_wire,
+    "server_wire": _server_wire, "oracle_copy": _oracle_copy,
+    "oracle_geometry": _oracle_geometry, "parity_soak": _parity_soak,
 }
+
+
+def test_the_oracle_backend_loads_no_jax_and_initialises_no_cuda():
+    """SegmentationEngine(cfg, backend="oracle") replays frames in a fresh
+    interpreter: neither jax nor the JAX package is imported, CUDA stays
+    uninitialised and no kernel library is built or loaded."""
+    code = (
+        "import sys, torch\n"
+        "from pointcloud_segmentation_tpu_torch import SegmentationEngine, _build\n"
+        "from pointcloud_segmentation_tpu_torch.config import StaticShapes, default_config\n"
+        "from pointcloud_segmentation_tpu_torch.io.scene import (OBS_TESTS_SCENE, WP_TESTS,\n"
+        "                                                        trajectory_poses)\n"
+        "from pointcloud_segmentation_tpu_torch.io.simulator import TofSpec, simulate_trajectory\n"
+        "cfg = default_config(granularity=2, shapes=StaticShapes(max_raw_points=4096,\n"
+        "                     max_points=2048, max_world_segments=32))\n"
+        "poses = trajectory_poses(WP_TESTS, hz=1.0, velocity=0.4)[4:6]\n"
+        "frames = simulate_trajectory(OBS_TESTS_SCENE, poses, TofSpec(noise_frac=0.002), seed=0)\n"
+        "eng = SegmentationEngine(cfg, backend='oracle')\n"
+        "recs = eng.run_replay(frames)\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'pointcloud_segmentation_tpu')\n"
+        "       or m.startswith(('jax.', 'pointcloud_segmentation_tpu.'))]\n"
+        "assert not bad, bad\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "assert not _build._loaded\n"
+        "print(len(recs), len(eng.world_segments()))\n")
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n_recs, n_segs = map(int, out.stdout.split())
+    assert n_recs == 2 and n_segs >= 1
 
 
 @pytest.mark.parametrize("case", sorted(PARITY))

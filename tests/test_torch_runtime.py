@@ -520,3 +520,249 @@ def test_load_library_builds_once_under_concurrent_callers(monkeypatch, tmp_path
     _build._loaded.pop(source, None)
     assert not any(t.is_alive() for t in threads)
     assert builds == [source] and len(got) == 8 and all(g is got[0] for g in got)
+
+
+# ------------------------------------------------------------------ batched replay
+
+def assert_same_state(a, b):
+    sa, sb = world_state_to_numpy(a.state), world_state_to_numpy(b.state)
+    for k in sa:
+        assert sa[k].dtype == sb[k].dtype, k
+        assert np.array_equal(sa[k], sb[k], equal_nan=True), k
+
+
+@pytest.mark.parametrize("batch", [2, 4])
+def test_batched_replay_equals_the_synchronous_replay(frames, sync, batch):
+    """run_replay(batch=k): the world state bit-equal to the synchronous
+    replay's, the same per-frame records, one amortised processing_time per
+    chunk; 7 frames leave a short last chunk."""
+    eng = SegmentationEngine(CFG, device="cpu")
+    recs = eng.run_replay(frames[:7], batch=batch)
+    ref = SegmentationEngine(CFG, device="cpu")
+    want = ref.run_replay(frames[:7])
+    assert_same_state(eng, ref)
+    assert eng.frames_processed == 7 and len(eng.records) == 7 and no_sentinels(recs)
+    for f in ("seg_vec_size", "nblines", "status", "t"):
+        assert [r[f] for r in recs] == [r[f] for r in want], f
+    assert set(recs[0]) == set(want[0])
+    chunk_times = [r["processing_time"] for r in recs[:batch]]
+    assert len(set(chunk_times)) == 1 and chunk_times[0] > 0
+    assert eng.intersections_rows() == ref.intersections_rows()
+    # and the batched engine carries on frame by frame from where it stands
+    eng.run_replay(frames[7:])
+    assert_same_state(eng, sync.eng)
+
+
+def test_batched_replay_skips_a_frame_without_a_pose(frames):
+    """A frame of a chunk whose pose lookup fails is counted as skipped and
+    leaves no record and no trace in the world map, as on the synchronous
+    path."""
+    def engine():
+        eng = SegmentationEngine(CFG, device="cpu")
+        lookup = eng.poses.lookup
+        eng.poses.lookup = lambda t: None if t == frames[2].t else lookup(t)
+        return eng
+
+    eng, ref = engine(), engine()
+    recs = eng.run_replay(frames[:6], batch=4)
+    want = ref.run_replay(frames[:6])
+    assert eng.frames_skipped_no_pose == ref.frames_skipped_no_pose == 1
+    assert eng.frames_processed == ref.frames_processed == 5
+    assert [r["t"] for r in recs] == [r["t"] for r in want]
+    assert frames[2].t not in [r["t"] for r in recs]
+    assert [r["nblines"] for r in recs] == [r["nblines"] for r in want]
+    assert_same_state(eng, ref)
+
+
+def test_batched_replay_accounts_for_d_cap_overflow(caplog):
+    cfg = TC.default_config(
+        granularity=1, opt_minvotes=8, min_pca_coeff=0.8, opt_nlines=4,
+        floor_trim_height=-10.0,
+        shapes=TC.StaticShapes(max_raw_points=2048, max_points=1024,
+                               max_world_segments=2))
+    rng = np.random.default_rng(3)
+    clouds = []
+    for i in range(4):                       # 4 well-separated beams, 2 fit
+        a = np.array([0.2 + 0.35 * i, -0.7, 0.4])
+        b = np.array([0.0, 1.0, 0.15 * (i + 1)])
+        b /= np.linalg.norm(b)
+        t = np.linspace(0, 1.2, 200)
+        clouds.append(a + t[:, None] * b + rng.normal(0, 0.004, (200, 3)))
+    pts = np.concatenate(clouds).astype(np.float32)
+    replay = [SimpleNamespace(t=float(i), position=np.zeros(3),
+                              quat_wxyz=np.array([1.0, 0, 0, 0]), points=pts)
+              for i in range(3)]
+    ref = SegmentationEngine(cfg, device="cpu")
+    ref.run_replay(replay)
+    eng = SegmentationEngine(cfg, device="cpu")
+    caplog.clear()
+    with caplog.at_level(logging.WARNING, logger="pointcloud_segmentation_tpu_torch"):
+        recs = eng.run_replay(replay, batch=4)
+    assert eng.world_overflow_frames == ref.world_overflow_frames == 3
+    assert [r["seg_vec_size"] for r in recs] == [2, 2, 2]
+    assert_same_state(eng, ref)
+    msgs = [r.getMessage() for r in caplog.records]
+    assert len(msgs) == 1 and "D-CAP" in msgs[0] and "across 3 frame(s)" in msgs[0]
+
+
+def test_batched_process_returns_device_tensors_of_length_f(frames):
+    from pointcloud_segmentation_tpu_torch.ops.hough import direction_tables
+    from pointcloud_segmentation_tpu_torch.pipeline import (batched_process,
+                                                            process_frame_packed)
+    from pointcloud_segmentation_tpu_torch.worldmap import init_world
+
+    eng = SegmentationEngine(CFG, device="cpu")
+    clouds = torch.stack([eng._pad_raw(f.points) for f in frames[:3]])
+    pos = torch.tensor(np.stack([f.position for f in frames[:3]]), dtype=torch.float32)
+    quat = torch.tensor(np.stack([f.quat_wxyz for f in frames[:3]]), dtype=torch.float32)
+    tables = direction_tables(CFG.granularity, "cpu")
+    state, nl, st, wc, ov = batched_process(init_world(CFG, "cpu"), clouds, pos, quat,
+                                            CFG, tables)
+    assert all(t.shape == (3,) and t.dtype == torch.int32 for t in (nl, st, wc, ov))
+    one = init_world(CFG, "cpu")
+    for i in range(3):
+        one, out, scalars = process_frame_packed(one, clouds[i], pos[i], quat[i], CFG, tables)
+        assert scalars.dtype == torch.int32
+        assert scalars.tolist() == [int(wc[i]), int(nl[i]), int(st[i]), int(ov[i])]
+    assert all(torch.equal(getattr(state, k), getattr(one, k)) for k in state._fields)
+
+
+# ------------------------------------------------------------------ float64 engine
+
+F64 = TC.default_config(granularity=2, compute_dtype="float64",
+                        shapes=TC.StaticShapes(**SHAPES))
+
+
+def test_float64_engine_replay_batched_and_checkpoints(frames, tmp_path):
+    """compute_dtype="float64" through the engine: a float64 world map,
+    batched = synchronous, a checkpoint that names its type and resumes bit
+    for bit, and a refusal to cross compute types."""
+    eng = SegmentationEngine(F64, device="cpu")
+    eng.run_replay(frames[:3])
+    ckpt = str(tmp_path / "f64.npz")
+    eng.save_checkpoint(ckpt)
+    eng.run_replay(frames[3:6])
+    assert eng.state.a.dtype == eng.state.inter.dtype == torch.float64
+    batched = SegmentationEngine(F64, device="cpu")
+    batched.run_replay(frames[:6], batch=4)
+    assert_same_state(eng, batched)
+
+    with np.load(ckpt) as data:
+        assert str(data["compute_dtype"]) == "float64"
+        assert data["world_a"].dtype == np.float64
+    resumed = SegmentationEngine(F64, device="cpu")
+    resumed.load_checkpoint(ckpt)
+    resumed.run_replay(frames[3:6])
+    assert_same_state(eng, resumed)
+    with pytest.raises(ValueError, match="float64 world map"):
+        SegmentationEngine(CFG, device="cpu").load_checkpoint(ckpt)
+    f32 = str(tmp_path / "f32.npz")
+    SegmentationEngine(CFG, device="cpu").save_checkpoint(f32)
+    with pytest.raises(ValueError, match="float32 world map"):
+        resumed.load_checkpoint(f32)
+
+
+def test_jax_float64_checkpoint_loads_into_a_float64_engine(frames, tmp_path):
+    import jax
+
+    ckpt = str(tmp_path / "jax64.npz")
+    with jax.enable_x64(True):
+        jeng = JaxEngine(JCFG.replace(compute_dtype="float64"), backend="jax")
+        jeng.run_replay(frames[:2])
+        jeng.save_checkpoint(ckpt)
+        want = jeng.world_segments()
+    eng = SegmentationEngine(F64, device="cpu")
+    eng.load_checkpoint(ckpt)
+    assert eng.state.a.dtype == torch.float64 and eng.frames_processed == 2
+    assert_segments_close(eng.world_segments(), want, 1e-12)
+    with pytest.raises(ValueError, match="float64 world map"):
+        SegmentationEngine(CFG, device="cpu").load_checkpoint(ckpt)
+
+
+# ------------------------------------------------------------------ oracle backend
+
+def same_rows(got, want):
+    assert len(got) == len(want)
+    for s, w in zip(got, want):
+        assert s.keys() == w.keys()
+        for k in s:
+            assert np.array_equal(np.asarray(s[k]), np.asarray(w[k])), k
+
+
+def test_oracle_backend_equals_the_jax_engines_oracle_backend(frames, tmp_path):
+    """backend="oracle" runs the port's copy of the numpy oracle: segments,
+    intersections, records, viz records and CSVs are the JAX engine's oracle
+    backend's, value for value."""
+    viz, jviz = [], []
+    eng = SegmentationEngine(CFG, backend="oracle", viz_stream=viz.append,
+                             viz_points=True, collect_inlier_points=True)
+    jeng = JaxEngine(JCFG, backend="oracle", viz_stream=jviz.append,
+                     viz_points=True, collect_inlier_points=True)
+    recs, jrecs = eng.run_replay(frames[:5]), jeng.run_replay(frames[:5])
+    assert eng.device.type == "cpu" and eng.state is None
+    for f in ("seg_vec_size", "nblines", "status", "t"):
+        assert [r[f] for r in recs] == [r[f] for r in jrecs], f
+    segs, inter = eng.world_snapshot()
+    same_rows(segs, jeng.world_segments())
+    assert inter == jeng.intersections_rows() and len(segs) >= 5
+    same_rows(eng.world_segments(), segs)
+    assert len(viz) == len(jviz) == 5
+    for t, j in zip(viz, jviz):
+        assert t == j
+    assert viz[-1]["hough_points_world_accumulated"] and viz[-1]["hough_points"]
+    pts = eng.visualization()["hough_points"]
+    assert sorted(pts) == list(range(len(segs)))
+    paths, jpaths = eng.finalize(str(tmp_path / "t")), jeng.finalize(str(tmp_path / "j"))
+    for k in ("segments", "intersections"):
+        with open(paths[k], "rb") as a, open(jpaths[k], "rb") as b:
+            assert a.read() == b.read(), k
+
+
+def test_oracle_checkpoints_cross_between_the_packages_and_are_refused_by_torch(
+        frames, tmp_path):
+    eng = SegmentationEngine(CFG, backend="oracle")
+    eng.run_replay(frames[:3])
+    ckpt, jckpt = str(tmp_path / "o.npz"), str(tmp_path / "jo.npz")
+    eng.save_checkpoint(ckpt)
+    jeng = JaxEngine(JCFG, backend="oracle")
+    jeng.load_checkpoint(ckpt)                    # the JAX engine reads the port's
+    same_rows(jeng.world_segments(), eng.world_segments())
+    jeng.run_replay(frames[3:5])
+    jeng.save_checkpoint(jckpt)
+    resumed = SegmentationEngine(CFG, backend="oracle", checkpoint_every=2)
+    resumed.load_checkpoint(jckpt)                # and the port the JAX engine's
+    assert (resumed.frames_processed, resumed._last_checkpoint_k) == (5, 2)
+    eng.run_replay(frames[3:5])
+    same_rows(resumed.world_segments(), eng.world_segments())
+    assert resumed.intersections_rows() == eng.intersections_rows()
+    assert [r["nblines"] for r in resumed.records] == [r["nblines"] for r in eng.records]
+
+    with pytest.raises(ValueError, match="backend='oracle'"):
+        SegmentationEngine(CFG, device="cpu").load_checkpoint(ckpt)
+    torch_ckpt = str(tmp_path / "t.npz")
+    SegmentationEngine(CFG, device="cpu").save_checkpoint(torch_ckpt)
+    with pytest.raises(ValueError, match="oracle checkpoints only"):
+        eng.load_checkpoint(torch_ckpt)
+
+
+def test_oracle_backend_needs_no_card_and_streams(frames, monkeypatch):
+    """The oracle backend never asks for CUDA or the kernel library, whatever
+    `device` says; the streaming worker runs it like the torch backend."""
+    def refuse(*a, **k):
+        raise AssertionError("the oracle backend touched CUDA or the kernels")
+
+    monkeypatch.setattr(torch.cuda, "is_available", refuse)
+    monkeypatch.setattr(torch.cuda, "current_device", refuse)
+    monkeypatch.setattr(_build, "load_library", refuse)
+    eng = SegmentationEngine(CFG, backend="oracle")         # device="cuda" by default
+    eng.start()
+    try:
+        lockstep(eng, frames[:3])
+    finally:
+        eng.stop()
+    ref = SegmentationEngine(CFG, backend="oracle", device="cuda:3")
+    ref.run_replay(frames[:3], batch=4)                     # batch: frame by frame
+    assert eng.frames_processed == 3 and eng.dropped_frames == 0
+    same_rows(eng.world_segments(), ref.world_segments())
+    with pytest.raises(ValueError, match="unknown backend"):
+        SegmentationEngine(CFG, backend="jax")

@@ -199,5 +199,10 @@ def test_cuda_device_without_a_card_raises():
 
 
 def test_float64_is_refused():
-    with pytest.raises(NotImplementedError):
-        SegmentationEngine(CFG.replace(compute_dtype="float64"), device="cpu")
+    """The port once refused compute_dtype="float64"; it now runs it (the
+    parity mode, tests/test_torch_f64.py).  What stays refused is a checkpoint
+    of the other float type."""
+    eng = SegmentationEngine(CFG.replace(compute_dtype="float64"), device="cpu")
+    assert eng.state.a.dtype == eng.state.inter.dtype == torch.float64
+    assert eng._tables[0].dtype == torch.float64 and eng._tables[1].dtype == torch.float32
+    assert SegmentationEngine(CFG, device="cpu").state.a.dtype == torch.float32

@@ -169,3 +169,118 @@ def test_multi_frame_sequence_matches_jax():
         ts, _ = TW.world_step(ts, to_torch_segs(f), CFG)
         assert_states_close(ts, js)
     assert int(ts.count) >= 4
+
+
+# ------------------------------------------------------------------ sequential
+
+FUZZ_CFG = default_config(
+    granularity=2,
+    shapes=StaticShapes(max_raw_points=4096, max_points=2048,
+                        max_world_segments=6))      # tiny: forces overflow
+FUZZ_FIELDS = ("a", "b", "t_min", "t_max", "radius", "points_size", "pca_coeff",
+               "pca_eigenvalues")
+
+
+def fuzz_batch(segs, L, dtype):
+    """A frame's SegmentBatch fields as numpy arrays from a list of dicts."""
+    f = {"a": np.zeros((L, 3), dtype), "b": np.zeros((L, 3), dtype),
+         "t_min": np.zeros(L, dtype), "t_max": np.zeros(L, dtype),
+         "radius": np.zeros(L, dtype), "points_size": np.zeros(L, np.int32),
+         "pca_coeff": np.zeros(L, dtype), "pca_eigenvalues": np.zeros((L, 3), dtype),
+         "point_mask": np.zeros((L, N), bool), "valid": np.zeros(L, bool)}
+    for i, s in enumerate(segs):
+        for k in FUZZ_FIELDS:
+            f[k][i] = s[k]
+        f["valid"][i] = True
+    return f
+
+
+def fuzz_seg(rng, a, b, t_min, t_max, n=50):
+    return {"a": np.asarray(a, np.float64), "b": np.asarray(b, np.float64),
+            "t_min": t_min, "t_max": t_max, "radius": 0.05, "points_size": n,
+            "pca_coeff": 0.999, "pca_eigenvalues": np.array([1.0, 1e-3, 1e-3])}
+
+
+def random_line(rng):
+    b = rng.normal(0, 1, 3)
+    return rng.normal(0, 0.5, 3), b / max(np.linalg.norm(b), 1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_fuse_frame_vectorized_matches_sequential(dtype):
+    """The fuzz of tests/test_worldmap_jax.py on the port: the vectorized
+    last-writer-wins fusion is bit-identical to the literal sequential loop
+    (slot collisions, capacity overflow, invalid frame segments), in both
+    compute types; in float32 both also give the JAX package's sequential
+    loop's slots, counts and flags, and its fields within 1e-5."""
+    rng = np.random.default_rng(1234)
+    cfg = FUZZ_CFG
+    npdt = np.dtype(dtype)
+    tdt = getattr(torch, dtype)
+    L = cfg.max_lines
+    collisions = overflows = 0
+    for trial in range(20):
+        ts = TW.init_world(cfg, "cpu", tdt)
+        js = JW.init_world(cfg)
+        seeds = [fuzz_seg(rng, *random_line(rng), -1.0, 1.0)
+                 for _ in range(int(rng.integers(0, 5)))]
+        if seeds:
+            f0 = fuzz_batch(seeds, L, npdt)
+            ts, _ = TW.world_step(ts, SegmentBatch(**{k: torch.from_numpy(v) for k, v in f0.items()}), cfg)
+            js, _ = JW.world_step(js, JSegmentBatch(**{k: jnp.asarray(v) for k, v in f0.items()}), cfg)
+        segs = []
+        for _ in range(int(rng.integers(1, 8))):
+            if seeds and rng.random() < 0.5:
+                base = seeds[int(rng.integers(0, len(seeds)))]
+                segs.append(fuzz_seg(rng, base["a"] + rng.normal(0, 0.002, 3), base["b"],
+                                     -1.0 + rng.random() * 0.1, 1.0,
+                                     n=int(rng.integers(20, 90))))
+            else:
+                segs.append(fuzz_seg(rng, *random_line(rng), -1.0, 1.0))
+        f = fuzz_batch(segs, L, npdt)
+        if rng.random() < 0.5:          # an invalid row in the middle
+            f["valid"][int(rng.integers(0, len(segs)))] = False
+        batch = SegmentBatch(**{k: torch.from_numpy(v) for k, v in f.items()})
+
+        out_v = TW.fuse_frame(ts, batch, cfg)
+        out_s = TW.fuse_frame_sequential(ts, batch, cfg)
+        for xv, xs in zip(out_v, out_s):
+            if isinstance(xv, dict):
+                for key in xv:
+                    assert xv[key].dtype == xs[key].dtype
+                    assert torch.equal(xv[key], xs[key]), f"trial {trial} field {key}"
+            else:
+                assert xv.dtype == xs.dtype
+                assert torch.equal(xv, xs), f"trial {trial}"
+        slots = out_s[5]
+        live = slots[slots >= 0]
+        collisions += int(len(live) != len(set(live.tolist())))
+        overflows += int((torch.from_numpy(f["valid"]) & (slots == -1)).any())
+
+        if dtype == "float32":
+            jout = JW.fuse_frame_sequential(
+                js, JSegmentBatch(**{k: jnp.asarray(v) for k, v in f.items()}), cfg)
+            for got, want in zip(out_s[1:], jout[1:]):
+                np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+            for key in FUZZ_FIELDS:
+                np.testing.assert_allclose(out_s[0][key].numpy(), np.asarray(jout[0][key]),
+                                           atol=1e-5, rtol=1e-5, err_msg=key)
+    assert collisions >= 2 and overflows >= 2
+
+
+def test_sequential_fusion_reads_no_host_value(monkeypatch):
+    """fuse_frame_sequential decides with torch.where on device flags: it
+    never turns a tensor into a Python number."""
+    def refuse(*a, **k):
+        raise AssertionError("host read in fuse_frame_sequential")
+
+    rng = np.random.default_rng(2)
+    w = random_world(rng, 5)
+    f = frame_from_world(rng, w, [2, 2, 4, -1, -1, 0], 5)
+    state, segs = world_state_from_numpy(w, "cpu"), to_torch_segs(f)
+    want = TW.fuse_frame(state, segs, CFG)
+    for name in ("item", "tolist", "__bool__", "__int__", "__index__", "__float__"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    got = TW.fuse_frame_sequential(state, segs, CFG)
+    monkeypatch.undo()
+    assert torch.equal(got[5], want[5]) and torch.equal(got[0]["a"], want[0]["a"])
