@@ -13,15 +13,26 @@ to float64 carry), the
 kernels against their plain versions on the float32 inputs a float64 frame
 hands them, batched replay against synchronous, sequential fusion against
 vectorised, seeds of tools/parity_soak_torch.py, and the oracle backend.
+Between the node loop and the parity stack, the sensor-data and display
+surfaces at the shipped config: the 31 frames written as ROS1 bags (none,
+bz2) and MCAP files (plain, one chunk, one zstd chunk where zstandard
+imports), decoded again and replayed on the card against the replay of the
+source frames (g6, and g4 on 12 frames); an ambiguous and a truncated bag
+refused before a frame reaches the engine; the frames as PointCloud2 and
+PoseStamped objects through the ROS bridge's callbacks; record --bag, run
+--bag, bag-info, viz and inspect in subprocesses; and the live player
+following a running stream.
 
-    python3 chip_smoke.py [--earlier path/to/an/earlier/voting.cu] [--parity-only]
+    python3 chip_smoke.py [--earlier path/to/an/earlier/voting.cu]
+                          [--parity-only | --sensor-only]
 
 Needs one CUDA card and nvcc; exits non-zero on any failure.  With
 --earlier, the kernels of that source (same C entries) are built too and
 timed beside this checkout's at the NX 79 main-path shapes.  With
 --parity-only, the kernel table, the golden fixtures and the node loop are
 left out (for work on the parity stack; the last lines are printed only by a
-whole run).  It prints the
+whole run); --sensor-only does the same for the sensor-data and display
+phases.  It prints the
 card's name and power limit, one line per check and time, then a JSON line
 of the kernels, the card line again, and last the JSON line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -35,10 +46,14 @@ import importlib.util
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import types
+import urllib.request
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -647,19 +662,21 @@ def serve_phase(cfg, frames, tmp):
           f"serve: segments.csv has {len(rows)} rows, as many as the final snapshot")
 
 
+def cli(*args):
+    """One CLI subprocess on the default device; its standard output."""
+    cmd = [sys.executable, "-m", "pointcloud_segmentation_tpu_torch", *args]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    label = " ".join(a for a in args[:2] if a.startswith("--") or a is args[0])
+    if out.returncode != 0:
+        fail(f"cli {label} exited {out.returncode}:\n{out.stdout}\n{out.stderr}")
+    check(True, f"cli {label} exited 0 in {time.perf_counter() - t0:.1f} s")
+    return out.stdout
+
+
 def cli_phase(tmp):
     """The CLI in subprocesses with the default device: run + eval + timing,
     record + stream."""
-    def cli(*args):
-        cmd = [sys.executable, "-m", "pointcloud_segmentation_tpu_torch", *args]
-        t0 = time.perf_counter()
-        out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
-        label = " ".join(args[:1])
-        if out.returncode != 0:
-            fail(f"cli {label} exited {out.returncode}:\n{out.stdout}\n{out.stderr}")
-        check(True, f"cli {label} exited 0 in {time.perf_counter() - t0:.1f} s")
-        return out.stdout
-
     def headers(outdir, label):
         for name, header in CSV_HEADERS.items():
             with open(os.path.join(outdir, name)) as f:
@@ -705,6 +722,367 @@ def checkpoint_phase(cfg, frames, ref, tmp):
     check(same_state(world_state_to_numpy(resumed.state), ref["state"]),
           "checkpoint: resume after frame 15 gives a world state bit-identical to "
           "the straight g6 replay")
+
+
+# ------------------------------------------------- sensor data and display
+
+def same_frames(a, b) -> bool:
+    """Two frame lists equal bit for bit: times, clouds and poses."""
+    return len(a) == len(b) and all(
+        x.t == y.t and np.asarray(x.points).tobytes() == np.asarray(y.points).tobytes()
+        and np.asarray(x.position).tobytes() == np.asarray(y.position).tobytes()
+        and np.asarray(x.quat_wxyz).tobytes() == np.asarray(y.quat_wxyz).tobytes()
+        for x, y in zip(a, b))
+
+
+def chunked_mcap(plain: str, path: str, compression: str) -> None:
+    """rosbag2's default layout from a plain MCAP file: its message records
+    rewrapped into one CHUNK record ("" or "zstd") that carries their CRC."""
+    from pointcloud_segmentation_tpu_torch.io import mcap as M
+
+    with open(plain, "rb") as f:
+        src = f.read()
+    keep, blob, off = [], [], len(M.MAGIC)
+    while off + 9 <= len(src):
+        op = src[off]
+        (clen,) = struct.unpack_from("<Q", src, off + 1)
+        rec = src[off: off + 9 + clen]
+        off += 9 + clen
+        if op == M._OP_MESSAGE:
+            blob.append(rec)
+        elif op in (M._OP_HEADER, M._OP_SCHEMA, M._OP_CHANNEL):
+            keep.append(rec)
+    blob = b"".join(blob)
+    if compression == "zstd":
+        import zstandard
+
+        packed = zstandard.ZstdCompressor().compress(blob)
+    else:
+        packed = blob
+    name = compression.encode()
+    chunk = (struct.pack("<QQQI", 0, 0, len(blob), zlib.crc32(blob))
+             + struct.pack("<I", len(name)) + name + struct.pack("<Q", len(packed)) + packed)
+    with open(path, "wb") as f:
+        f.write(M.MAGIC + b"".join(keep) + M._rec(M._OP_CHUNK, chunk)
+                + M._rec(M._OP_FOOTER, struct.pack("<QQI", 0, 0, 0)) + M.MAGIC)
+
+
+def two_cloud_topic_bag(path: str, frames) -> None:
+    """A record-everything ROS1 capture of `frames`: /tof_pc, the node's
+    republished /filtered_pointcloud (the same clouds) and one pose topic."""
+    from pointcloud_segmentation_tpu_torch.io import rosbag as R
+
+    def conn(i, topic, mtype):
+        hdr = (R._field("op", bytes([0x07])) + R._field("conn", struct.pack("<I", i))
+               + R._field("topic", topic))
+        return R._record(hdr, R._field("topic", topic) + R._field("type", mtype))
+
+    def msg(i, t, payload):
+        return R._record(R._field("op", bytes([0x02])) + R._field("conn", struct.pack("<I", i))
+                         + R._field("time", R._enc_time(t)), payload)
+
+    with open(path, "wb") as f:
+        f.write(R._MAGIC)
+        f.write(conn(0, b"/tof_pc", b"sensor_msgs/PointCloud2"))
+        f.write(conn(1, b"/filtered_pointcloud", b"sensor_msgs/PointCloud2"))
+        f.write(conn(2, b"/mavros/local_position/pose", b"geometry_msgs/PoseStamped"))
+        for k, fr in enumerate(frames):
+            f.write(msg(2, fr.t, R._ser_posestamped(fr.t, fr.position, fr.quat_wxyz, k)))
+            for i in (0, 1):
+                f.write(msg(i, fr.t, R._ser_pointcloud2(fr.t, fr.points, k)))
+
+
+def fed_replay(label, cfg, decoded, ref, source_equal, dev, kernel):
+    """A replay of decoded frames on the card against the replay of the
+    source frames: integers exact, endpoints within 5e-3, and the world
+    state bit for bit where the decoded frames equal the source's."""
+    run, _ = counted_run(label, cfg, decoded, dev, kernel)
+    same_extraction(run, ref, label)
+    counts = [r["seg_vec_size"] for r in run["records"]]
+    check(counts == [r["seg_vec_size"] for r in ref["records"]],
+          f"{label}: per-frame world count equal ({counts[-1]} segments at the end)")
+    if source_equal:
+        check(same_state(run["state"], ref["state"]),
+              f"{label}: world state bit-identical to the replay of the source frames")
+    return run
+
+
+def bag_phase(cfg6, cfg4, frames, k6, dev, card, tmp):
+    """The frames through every container and back, then through the card."""
+    from pointcloud_segmentation_tpu_torch.io import mcap, rosbag
+    from pointcloud_segmentation_tpu_torch.ops.hough import KERNELS
+
+    def path(name):
+        return os.path.join(tmp, name)
+
+    n = len(frames)
+    writers = [("ROS1 bag", path("flight.bag"), lambda p: rosbag.frames_to_bag(p, frames)),
+               ("ROS1 bag, bz2", path("flight_bz2.bag"),
+                lambda p: rosbag.frames_to_bag(p, frames, compression="bz2")),
+               ("MCAP", path("flight.mcap"), lambda p: mcap.frames_to_mcap(p, frames)),
+               ("MCAP, one chunk", path("flight_chunk.mcap"),
+                lambda p: chunked_mcap(path("flight.mcap"), p, ""))]
+    if importlib.util.find_spec("zstandard") is not None:
+        writers.append(("MCAP, one zstd chunk", path("flight_zstd.mcap"),
+                        lambda p: chunked_mcap(path("flight.mcap"), p, "zstd")))
+    else:
+        print("      zstandard does not import here: no zstd chunk", flush=True)
+    decoded = {}
+    for label, p, write in writers:
+        write(p)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            back = rosbag.bag_to_frames(p)
+            times.append((time.perf_counter() - t0) * 1e3 / n)
+        decoded[label] = back
+        check(len(back) == n and all(a.points.tobytes() == b.points.tobytes()
+                                     for a, b in zip(back, frames)),
+              f"{label}: {len(back)} frames decoded, every cloud bit-equal to its source")
+        print(f"time  {label}, {n} frames: bag_to_frames {min(times):.4f} ms a frame on the "
+              f"host (best of 3), file {os.path.getsize(p)} bytes [{card}]", flush=True)
+    first = decoded["ROS1 bag"]
+    check(all(same_frames(first, d) for d in decoded.values()),
+          f"the {len(decoded)} decoded frame lists are equal to each other bit for bit")
+    source_equal = same_frames(first, frames)
+    print(f"      decoded poses and stamps {'equal' if source_equal else 'differ from'} the "
+          f"source frames' bit for bit", flush=True)
+    last = list(decoded)[-1]
+    runs = [fed_replay(f"g6 replay fed from the {label}", cfg6, decoded[label], k6,
+                       source_equal, dev, "vote_state")
+            for label in ("ROS1 bag, bz2", last)]
+    ref4 = replay(cfg4, frames[:12], dev, KERNELS)
+    fed_replay("g4 replay of 12 frames fed from the MCAP", cfg4, decoded["MCAP"][:12], ref4,
+               source_equal, dev, "vote_histogram")
+
+    def ms_per_frame(run):
+        return statistics.median(r["processing_time"] for r in run["records"]) / 1e3
+
+    print(f"time  replay g6 fed from decoded frames, {n} frames, median ms/frame: "
+          f"{ms_per_frame(runs[0]):.3f} (bz2 bag), {ms_per_frame(runs[1]):.3f} ({last}); the "
+          f"replay of the source frames {ms_per_frame(k6):.3f} [{card}]", flush=True)
+    return path("flight_bz2.bag")
+
+
+def refusal_phase(cfg6, frames, k6, dev, tmp):
+    """Ambiguous and broken recordings on the card's path: refused before a
+    frame reaches the engine, or run once the caller has picked a topic."""
+    from pointcloud_segmentation_tpu_torch import SegmentationEngine
+    from pointcloud_segmentation_tpu_torch.io import rosbag
+
+    two = os.path.join(tmp, "two_topics.bag")
+    two_cloud_topic_bag(two, frames)
+    eng = SegmentationEngine(cfg6, dev)
+    try:
+        eng.run_replay(rosbag.bag_to_frames(two))
+        fail("a bag with two cloud topics was read")
+    except IOError as e:
+        check("/tof_pc" in str(e) and "/filtered_pointcloud" in str(e)
+              and "--cloud-topic" in str(e) and eng.frames_processed == 0,
+              f"a bag with two cloud topics is refused and names both: {e}")
+    picked = rosbag.bag_to_frames(two, cloud_topic="/tof_pc")
+    check(same_frames(picked, rosbag.bag_to_frames(os.path.join(tmp, "flight.bag"))),
+          f"with cloud_topic='/tof_pc' the same bag gives the {len(picked)} frames of the "
+          f"plain bag bit for bit")
+    voting = counted_voting()
+    eng = SegmentationEngine(cfg6, dev, voting=voting)
+    recs = eng.run_replay(picked[:8])
+    launches_of("g6 replay of 8 frames of the picked topic", voting)
+    check([(r["nblines"], r["status"], r["seg_vec_size"]) for r in recs]
+          == [(r["nblines"], r["status"], r["seg_vec_size"]) for r in k6["records"][:8]],
+          "the picked topic runs: nlines, status and world count of the replay's first 8 frames")
+
+    with open(os.path.join(tmp, "flight.bag"), "rb") as f:
+        src = f.read()
+    # 13 bytes of magic and a bag header padded to 4096: the chunk starts at 4109
+    cut = os.path.join(tmp, "cut.bag")
+    with open(cut, "wb") as f:
+        f.write(src[: 4109 + (len(src) - 4109) // 2])
+    with open(cut, "rb") as f:
+        f.seek(len(rosbag._MAGIC))
+        try:
+            while rosbag._read_record(f) is not None:
+                pass
+            fail("a bag cut in the middle of its chunk read to its end")
+        except rosbag.TruncatedBag as e:
+            check(True, f"a bag cut in the middle of its chunk: the record reader raises "
+                        f"TruncatedBag ({e})")
+    eng = SegmentationEngine(cfg6, dev)
+    try:
+        eng.run_replay(rosbag.bag_to_frames(cut))
+        fail("a closed bag cut in the middle of its chunk was read")
+    except IOError as e:
+        check("corrupt, not merely truncated" in str(e) and eng.frames_processed == 0,
+              f"bag_to_frames refuses it before a frame reaches the engine, since its header "
+              f"says the recording was closed: {e}")
+    j = src.index(b"index_pos=") + len(b"index_pos=")
+    with open(cut, "wb") as f:
+        f.write((src[:j] + b"\x00" * 8 + src[j + 8:])[: 4109 + (len(src) - 4109) // 2])
+    check(rosbag.bag_to_frames(cut) == [],
+          "the same cut in an unclosed recording (index_pos 0) is a torn tail: a warning, "
+          "no frame from the half chunk")
+
+
+def cloud_message(fr):
+    """A duck-typed sensor_msgs/PointCloud2 of one frame: x, y, z float32 and
+    an intensity field, 16 bytes a point."""
+    rec = np.zeros((len(fr.points), 4), np.float32)
+    rec[:, :3] = fr.points
+    secs = int(fr.t)
+    return types.SimpleNamespace(
+        fields=[types.SimpleNamespace(name=name, offset=4 * i)
+                for i, name in enumerate(("x", "y", "z", "intensity"))],
+        point_step=16, is_bigendian=False, data=rec.tobytes(),
+        header=types.SimpleNamespace(stamp=types.SimpleNamespace(
+            secs=secs, nsecs=int(round((fr.t - secs) * 1e9)))))
+
+
+def pose_message(fr):
+    secs = int(fr.t)
+    p, q = fr.position, fr.quat_wxyz
+    return types.SimpleNamespace(
+        header=types.SimpleNamespace(stamp=types.SimpleNamespace(
+            secs=secs, nsecs=int(round((fr.t - secs) * 1e9)))),
+        pose=types.SimpleNamespace(
+            position=types.SimpleNamespace(x=p[0], y=p[1], z=p[2]),
+            orientation=types.SimpleNamespace(w=q[0], x=q[1], y=q[2], z=q[3])))
+
+
+def bridge_phase(cfg6, frames, k6):
+    """The frames as ROS messages through RosBridge.on_pose / on_cloud, each
+    drained before the next; the bridge is made without rospy."""
+    from pointcloud_segmentation_tpu_torch import SegmentationEngine
+    from pointcloud_segmentation_tpu_torch.convert import world_state_to_numpy
+    from pointcloud_segmentation_tpu_torch.io.ros_bridge import RosBridge
+
+    voting = counted_voting()
+    eng = SegmentationEngine(cfg6, voting=voting)    # built on this thread
+    if importlib.util.find_spec("rospy") is None:
+        try:
+            RosBridge(eng)
+            fail("RosBridge was made without rospy")
+        except ImportError as e:
+            check("rospy" in str(e) and eng._worker is None,
+                  "RosBridge without rospy raises ImportError and starts nothing")
+    bridge = RosBridge.__new__(RosBridge)
+    bridge.engine = eng
+    eng.start()
+    try:
+        for i, fr in enumerate(frames):
+            bridge.on_pose(pose_message(fr))
+            bridge.on_cloud(cloud_message(fr))
+            if not eng.drain(target_total=i + 1, timeout=120.0):
+                fail(f"ROS bridge: frame {i} not accounted for in 120 s")
+    finally:
+        bridge.shutdown()
+    launches_of("ROS bridge", voting)
+    check((eng.frames_processed, eng.dropped_frames, eng.frames_failed,
+           eng.frames_skipped_no_pose) == (len(frames), 0, 0, 0) and eng._worker is None,
+          f"ROS bridge: {eng.frames_processed} processed, {eng.dropped_frames} dropped, "
+          f"{eng.frames_failed} failed, {eng.frames_skipped_no_pose} skipped; worker stopped")
+    check(same_state(world_state_to_numpy(eng.state), k6["state"]),
+          "ROS bridge: world state bit-identical to the synchronous g6 replay (and so to "
+          "the lockstep stream's)")
+
+
+def sensor_cli_phase(bag, tmp, card):
+    """record --bag, run --bag, bag-info, viz and inspect in subprocesses, on
+    the default device."""
+    log = os.path.join(tmp, "from_bag.pcsl")
+    text = cli("record", log, "--bag", bag)
+    check(text.strip() == f"recorded 31 frames -> {log}", "cli record --bag: " + text.strip())
+    plots = importlib.util.find_spec("matplotlib") is not None
+    out, stream = os.path.join(tmp, "cli_bag"), os.path.join(tmp, "cli_bag.jsonl")
+    text = cli("run", "--bag", bag, "--max-frames", "12", "--viz-stream", stream, "--out", out,
+               *(["--plots"] if plots else []))
+    check(text.startswith("12 frames ->") and f"viz stream: {stream}" in text,
+          "cli run --bag: " + text.splitlines()[0])
+    for name, header in CSV_HEADERS.items():
+        with open(os.path.join(out, name)) as f:
+            check(f.readline().strip() == header,
+                  f"cli run --bag: {name} has the reference header")
+    if plots:
+        with open(os.path.join(out, "world.png"), "rb") as f:
+            check(f.read(4) == b"\x89PNG", "cli run --bag --plots wrote world.png")
+    else:
+        print("      matplotlib does not import here: --plots skipped", flush=True)
+    text = cli("bag-info", bag)
+    check("clouds: /tof_pc" in text and "poses: /mavros/local_position/pose" in text
+          and "31 msgs" in text, "cli bag-info picks one cloud and one pose topic of 31 messages")
+    text = cli("viz", stream)
+    html = os.path.splitext(stream)[0] + ".html"
+    with open(html) as f:
+        line = next(ln for ln in f if ln.startswith("const FRAMES = "))
+    held = json.loads(line[len("const FRAMES = "):].rstrip().rstrip(";"))
+    check(text.strip() == f"12 frames -> {html}" and [r["frame"] for r in held]
+          == list(range(1, 13)), "cli viz: the HTML player holds the stream's 12 frames")
+    info = json.loads(cli("inspect"))
+    check(info["backend"] == "torch" and info["device"] == torch.cuda.get_device_name(0)
+          and (info["granularity"], info["num_directions"], info["num_x_max"],
+               info["max_points"], info["max_world_segments"]) == (6, 20481, 79, 4096, 64),
+          f"cli inspect: the shipped config's shape facts on {info['device']}")
+    check(info["vote_state_launches"] > 0 and info["kernel_launches"] > info["vote_state_launches"]
+          and info["device_us"] > 0 and info["nlines"] >= 1,
+          f"cli inspect: frame {info['frame']} launched vote_state "
+          f"{info['vote_state_launches']} times among {info['kernel_launches']} kernel launches")
+    print(f"time  cli inspect, frame {info['frame']} of the 4 Hz flight after one warm-up "
+          f"frame, under torch.profiler: kernel_launches {info['kernel_launches']}, device_us "
+          f"{info['device_us']}, wall_ms {info['wall_ms']:.3f}, vote_state_launches "
+          f"{info['vote_state_launches']}, vote_histogram_launches "
+          f"{info['vote_histogram_launches']}, nlines {info['nlines']} [{card}]", flush=True)
+
+
+def live_player_phase(cfg6, frames, tmp):
+    """VizStreamServer following the JSONL of a running lockstep stream: one
+    GET in mid-stream returns the records written so far."""
+    from pointcloud_segmentation_tpu_torch import SegmentationEngine
+    from pointcloud_segmentation_tpu_torch.viz import VizStreamServer
+
+    def get(url):
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.read()
+
+    stream = os.path.join(tmp, "live.jsonl")
+    voting = counted_voting()
+    eng = SegmentationEngine(cfg6, voting=voting, viz_stream=stream)
+    srv = VizStreamServer(stream)
+    th = srv.start_background()
+    part = frames[:10]
+    eng.start()
+    try:
+        check(b"poll()" in get(srv.url), f"live player: the page is served at {srv.url}")
+        for i, fr in enumerate(part):
+            eng.push_pose(fr.t, fr.position, fr.quat_wxyz)
+            eng.submit_cloud(fr.t, fr.points)
+            if not eng.drain(target_total=i + 1, timeout=120.0):
+                fail(f"live player: frame {i} not accounted for in 120 s")
+            if i == 5:
+                mid = json.loads(get(srv.url + "stream?from=0"))
+        rest = json.loads(get(srv.url + f"stream?from={mid['next']}&gen={mid['gen']}"))
+    finally:
+        eng.stop()
+        srv.shutdown()
+        th.join(timeout=30.0)
+    launches_of("live player's stream", voting)
+    eng.finalize(os.path.join(tmp, "live"))
+    check([r["frame"] for r in mid["frames"]] == list(range(1, 7)) and mid["next"] == 6
+          and all(set(r) == VIZ_KEYS for r in mid["frames"]),
+          "live player: a GET of /stream after 6 frames returns the 6 records written so far")
+    check([r["frame"] for r in rest["frames"]] == list(range(7, 11)) and rest["next"] == 10,
+          "live player: the next poll returns the 4 records that followed, and no other")
+    check(not th.is_alive() and eng._worker is None,
+          "live player: server thread and worker both ended")
+
+
+def sensor_stack(cfg6, cfg4, frames, k6, dev, card, tmp):
+    t0 = time.perf_counter()
+    bag = bag_phase(cfg6, cfg4, frames, k6, dev, card, tmp)
+    refusal_phase(cfg6, frames, k6, dev, tmp)
+    bridge_phase(cfg6, frames, k6)
+    sensor_cli_phase(bag, tmp, card)
+    live_player_phase(cfg6, frames, tmp)
+    print(f"time  the sensor-data and display phases: {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
 
 
 # ------------------------------------------------------------------ parity stack
@@ -992,6 +1370,9 @@ def main() -> None:
     ap.add_argument("--parity-only", action="store_true",
                     help="the g6 replay and the parity stack's phases only; "
                          "prints no result lines")
+    ap.add_argument("--sensor-only", action="store_true",
+                    help="the g6 replay and the sensor-data and display phases "
+                         "only; prints no result lines")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: chip_smoke needs a CUDA card")
@@ -1028,11 +1409,12 @@ def main() -> None:
 
     cfg6 = default_config()
     cfg4 = default_config(granularity=4)
-    if args.parity_only:
+    if args.parity_only or args.sensor_only:
         k6, _ = counted_run("g6 replay", cfg6, frames, dev, "vote_state")
+        stack = parity_stack if args.parity_only else sensor_stack
         with tempfile.TemporaryDirectory(prefix="pcs_chip_smoke_") as tmp:
-            parity_stack(cfg6, cfg4, frames, k6, dev, card, tmp)
-        print("parity stack only: no result lines", flush=True)
+            stack(cfg6, cfg4, frames, k6, dev, card, tmp)
+        print("one stack only: no result lines", flush=True)
         sys.exit(3)
 
     sh = kernel_checks(dev, frames[len(frames) // 2], card, earlier)
@@ -1106,6 +1488,7 @@ def main() -> None:
         serve_phase(cfg6, frames, tmp)
         cli_phase(tmp)
         checkpoint_phase(cfg6, frames, k6, tmp)
+        sensor_stack(cfg6, cfg4, frames, k6, dev, card, tmp)
         parity_stack(cfg6, cfg4, frames, k6, dev, card, tmp)
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,15 +2,20 @@
 
 Subcommands:
   run      simulate (or replay) a trajectory through the pipeline, write the
-           three reference CSVs
-  record   simulate a trajectory and save a binary replay log
+           three reference CSVs (+ optional plots)
+  record   simulate a trajectory (or read a recorded bag) and save a binary
+           replay log
   stream   replay a recorded log through the live runtime at sensor rate
            (feeder -> latest-wins mailbox -> worker thread)
   serve    put the engine behind a TCP endpoint: binary frame stream in,
            world-map queries / CSV flush out (the deployable node loop)
+  viz      render a per-frame viz stream into an interactive HTML player
   eval     compare a segments.csv against the benchmark scene's ground truth
            with the reference match criteria (tests_structure.py analog)
   timing   analyze a processing_time.csv (proc_time_analysis.py analog)
+  bag-info per-topic summary of a recorded ROS1 .bag / ROS2 .mcap
+  inspect  run one frame under the profiler: kernel launches and device time
+           beside the shape and capacity facts
 
 The commands, flags and output are the JAX package's CLI's, with --backend
 torch (the default) or oracle (the numpy reference on the host, which needs
@@ -22,9 +27,10 @@ Examples:
   python -m pointcloud_segmentation_tpu_torch run --out ./output_data
   python -m pointcloud_segmentation_tpu_torch run --granularity 2 --device cpu
   python -m pointcloud_segmentation_tpu_torch run --replay log.pcsl --backend oracle
+  python -m pointcloud_segmentation_tpu_torch run --bag flight.bag --out ./o
   python -m pointcloud_segmentation_tpu_torch record log.pcsl --max-frames 100
   python -m pointcloud_segmentation_tpu_torch stream log.pcsl --rate 30 --out ./o
-  python -m pointcloud_segmentation_tpu_torch eval ./output_data/segments.csv
+  python -m pointcloud_segmentation_tpu_torch eval ./output_data/segments.csv --plots
   python -m pointcloud_segmentation_tpu_torch timing ./output_data/processing_time.csv
 """
 
@@ -107,10 +113,22 @@ def _frames(args):
     from .io.scene import load_waypoints_csv, trajectory_poses
     from .io.simulator import TofSpec, simulate_trajectory
 
+    if getattr(args, "bag", None):
+        from .io.rosbag import bag_to_frames
+
+        # recorded ROS data (the reference's /tof_pc + pose topics,
+        # node.cpp:64-67) — poses associated via the TF2-analog buffer
+        frames = bag_to_frames(args.bag,
+                               cloud_topic=getattr(args, "cloud_topic", None),
+                               pose_topic=getattr(args, "pose_topic", None))
+        return frames[: args.max_frames] if getattr(args, "max_frames", 0) \
+            else frames
     if getattr(args, "replay", None):
         from .io.replay import load_frames
 
         frames = load_frames(args.replay)
+        # --max-frames applies to replayed logs too, not only simulated
+        # trajectories
         return frames[: args.max_frames] if args.max_frames else frames
     scene, wps_default = _resolve_scene(args)
     wps = (load_waypoints_csv(args.waypoints)
@@ -155,6 +173,21 @@ def cmd_run(args) -> int:
         print(f"  {k}: {v}")
     if args.viz_stream:
         print(f"  viz stream: {args.viz_stream}")
+    if args.plots:
+        from . import viz
+        from .eval import match_report
+        from .io.scene import scene_truth
+
+        scene, _ = _resolve_scene(args)
+        truth = scene_truth(scene)
+        proc = [dict(s, endpoints=[s["t_min"], s["t_max"]]) for s in segs]
+        rep = match_report(truth, proc)
+        viz.plot_world(proc, truth, rep["matches"],
+                       out_path=os.path.join(outdir, "world.png"))
+        if rep["matches"]:
+            viz.plot_distance_vs_angle(
+                rep["matches"], out_path=os.path.join(outdir, "errors.png"))
+        print(f"  plots: {outdir}/world.png")
     return 0
 
 
@@ -206,9 +239,34 @@ def cmd_serve(args) -> int:
                              outdir=args.out or cfg.path_to_output)
     print(f"serving on {srv.host}:{srv.port}", flush=True)
     if args.viz_stream:
-        print(f"viz stream: {args.viz_stream}", flush=True)
+        print(f"viz stream: {args.viz_stream}  (watch live with "
+              f"`pcs-torch viz {args.viz_stream} --follow`)", flush=True)
     out = srv.serve_forever()
     print(json.dumps(out))
+    return 0
+
+
+def cmd_viz(args) -> int:
+    """Render a per-frame viz-stream JSONL (from `run --viz-stream`) into a
+    self-contained interactive HTML player — the offline RViz stand-in.
+    With --follow, serve a live player instead that tails the (growing)
+    JSONL, so a concurrent run/stream/serve process is watched as it maps."""
+    if args.follow:
+        from .viz import VizStreamServer
+
+        srv = VizStreamServer(args.stream, host=args.host, port=args.port)
+        print(f"live player: {srv.url}  (following {args.stream}; Ctrl-C "
+              f"to stop)", flush=True)
+        try:
+            srv.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        return 0
+    from .viz import render_viz_stream_html
+
+    out = args.out or (os.path.splitext(args.stream)[0] + ".html")
+    n = render_viz_stream_html(args.stream, out)
+    print(f"{n} frames -> {out}")
     return 0
 
 
@@ -219,10 +277,97 @@ def cmd_eval(args) -> int:
 
     proc = read_segments_csv(args.segments_csv)
     scene, _ = _resolve_scene(args)
-    rep = match_report(scene_truth(scene), proc, args.angle_threshold,
-                       args.distance_threshold)
+    truth = scene_truth(scene)
+    rep = match_report(truth, proc, args.angle_threshold, args.distance_threshold)
     print(json.dumps({k: v for k, v in rep.items() if k != "matches"}, indent=2))
+    if args.plots:
+        from . import viz
+
+        base = os.path.dirname(os.path.abspath(args.segments_csv))
+        viz.plot_world(proc, truth, rep["matches"],
+                       out_path=os.path.join(base, "eval_world.png"))
+        if rep["matches"]:
+            viz.plot_distance_vs_angle(
+                rep["matches"], out_path=os.path.join(base, "eval_errors.png"))
+        print(f"plots: {base}/eval_world.png")
     return 0 if rep["n_truth_matched"] else 1
+
+
+# frame of the flight that `inspect` profiles, after the frame before it as
+# a warm-up: by then the drone has beams in view
+INSPECT_FRAME = 10
+
+
+def cmd_inspect(args) -> int:
+    """Run one real frame under torch.profiler and print what it cost beside
+    the shape and capacity facts — the profiling/observability hook.  Eager
+    PyTorch has no compiled step to ask for FLOPs and bytes, so the frame's
+    kernel launches (the profiler's CUDA-runtime launch events), its device
+    time (the kernels' own time, summed) and its wall time (with the profiler
+    on) take their place.  On the CPU the card's fields are left out."""
+    import contextlib
+    import time
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from .io.scene import trajectory_poses
+    from .io.simulator import TofSpec, simulate_trajectory
+    from .ops import voting as V
+    from .runtime import SegmentationEngine
+
+    cfg = _build_cfg(args)
+    scene, wps = _scene_and_waypoints(args.scene)
+    poses = trajectory_poses(wps, hz=4.0, velocity=0.25)[: INSPECT_FRAME + 1]
+    frames = simulate_trajectory(scene, poses, TofSpec(noise_frac=0.002),
+                                 seed=args.seed)
+    eng = SegmentationEngine(cfg, device=args.device)
+    on_card = eng.device.type == "cuda"
+
+    def profiler():
+        if not on_card:
+            return contextlib.nullcontext()
+        return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    # the warm-up frame pays the process's lazy start-up, the profiler's too
+    with profiler():
+        eng.run_replay(frames[-2:-1])
+    V.vote_state.launches = V.vote_histogram.launches = 0
+    with profiler() as prof:
+        t0 = time.perf_counter()
+        (rec,) = eng.run_replay(frames[-1:])
+        if on_card:
+            torch.cuda.synchronize(eng.device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = device_us = None
+    if on_card:
+        events = prof.key_averages()
+        launches = sum(e.count for e in events
+                       if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+        # device rows only: a host row's device time is its kernels' time
+        # over again
+        device_us = sum(getattr(e, "self_device_time_total",
+                                getattr(e, "self_cuda_time_total", 0))
+                        for e in events if e.device_type == DeviceType.CUDA)
+    info = {
+        "backend": "torch",
+        "device": torch.cuda.get_device_name(eng.device) if on_card else "cpu",
+        "granularity": cfg.granularity,
+        "num_directions": cfg.num_directions,
+        "num_x_max": cfg.num_x_max,
+        "max_points": cfg.shapes.max_points,
+        "max_world_segments": cfg.shapes.max_world_segments,
+        "frame": INSPECT_FRAME,
+        "nlines": rec["nblines"],
+        "wall_ms": wall_ms,
+        "kernel_launches": launches,
+        "device_us": device_us,
+        "vote_state_launches": V.vote_state.launches if on_card else None,
+        "vote_histogram_launches": V.vote_histogram.launches if on_card else None,
+    }
+    print(json.dumps({k: v for k, v in info.items() if v is not None}, indent=2))
+    return 0
 
 
 def cmd_timing(args) -> int:
@@ -237,6 +382,49 @@ def cmd_timing(args) -> int:
         plot_boxplots(data, os.path.join(base, "timing.png"))
         print(f"plots: {base}/timing.png")
     return 0
+
+
+def cmd_baginfo(args) -> int:
+    """`rosbag info` analog for --bag inputs: per-topic type/count/time
+    span, plus which topics the ingestion would pick (or why it would
+    refuse — see io.rosbag.require_single_topic)."""
+    from .io import mcap as _mcap
+    from .io.rosbag import CLOUD_TYPE, POSE_TYPES, bag_info
+
+    info = bag_info(args.bag)
+    topics = info["topics"]
+    print(f"{args.bag}: {info['format']}, {len(topics)} topics")
+    for topic in sorted(topics):
+        d = topics[topic]
+        enc = f" [{d['encoding']}]" if d.get("encoding") else ""
+        print(f"  {topic}  {d['type']}{enc}  {d['count']} msgs  "
+              f"t=[{d['t_min']:.3f}, {d['t_max']:.3f}]")
+    cloud_types = set(_mcap.CLOUD_TYPES) | {CLOUD_TYPE}
+    pose_types = set(_mcap.POSE_TYPES) | set(POSE_TYPES)
+    clouds = sorted(t for t, d in topics.items() if d["type"] in cloud_types)
+    poses = sorted(t for t, d in topics.items() if d["type"] in pose_types)
+    for kind, flag, names in (("clouds", "--cloud-topic", clouds),
+                              ("poses", "--pose-topic", poses)):
+        if len(names) == 1:
+            print(f"{kind}: {names[0]}")
+        elif not names:
+            print(f"{kind}: NONE (no matching topic)")
+        else:
+            print(f"{kind}: AMBIGUOUS — pass {flag} "
+                  f"(candidates: {', '.join(names)})")
+    return 0
+
+
+def _add_bag(p, what):
+    p.add_argument("--bag", help=what)
+    p.add_argument("--cloud-topic", default=None, metavar="TOPIC",
+                   help="PointCloud2 topic to read from --bag (required "
+                        "when several topics carry clouds, e.g. a "
+                        "record-everything capture that also holds the "
+                        "node's republished filtered/hough clouds)")
+    p.add_argument("--pose-topic", default=None, metavar="TOPIC",
+                   help="pose topic (PoseStamped/Odometry) to read from "
+                        "--bag when several match")
 
 
 def _add_trajectory(p):
@@ -276,6 +464,11 @@ def main(argv=None) -> int:
     _add_common(pr)
     _add_trajectory(pr)
     pr.add_argument("--replay", help="replay a recorded .pcsl frame log")
+    _add_bag(pr, "replay a recorded ROS1 .bag or ROS2 .mcap "
+                 "(sensor_msgs/PointCloud2 + pose topic — the reference's "
+                 "rosbag recordings, read without a ROS install; container "
+                 "auto-detected)")
+    pr.add_argument("--plots", action="store_true")
     pr.add_argument("--surface-offset", action="store_true",
                     help="enable the E-OFFSET axis-bias correction "
                          "(report §6.3 ground-truth offset; opt-in "
@@ -290,6 +483,8 @@ def main(argv=None) -> int:
     _add_common(pc)
     pc.add_argument("log", help="output .pcsl path")
     _add_trajectory(pc)
+    _add_bag(pc, "convert a recorded ROS1 .bag / ROS2 .mcap into the .pcsl "
+                 "log instead of simulating")
     pc.set_defaults(fn=cmd_record)
 
     ps = sub.add_parser("stream",
@@ -302,7 +497,7 @@ def main(argv=None) -> int:
     ps.add_argument("--loops", type=int, default=1)
     ps.add_argument("--viz-stream", default=None, metavar="JSONL",
                     help="per-frame marker stream, one record per processed "
-                         "frame")
+                         "frame (watch with `pcs-torch viz <JSONL> --follow`)")
     _add_viz_points(ps)
     ps.set_defaults(fn=cmd_stream)
 
@@ -313,7 +508,9 @@ def main(argv=None) -> int:
     px.add_argument("--port", type=int, default=0,
                     help="TCP port (0 = ephemeral, printed at startup)")
     px.add_argument("--viz-stream", default=None, metavar="JSONL",
-                    help="also write the per-frame marker stream")
+                    help="also write the per-frame marker stream; pair with "
+                         "`pcs-torch viz <JSONL> --follow` in another terminal "
+                         "to watch the served stream live")
     px.set_defaults(fn=cmd_serve)
 
     pe = sub.add_parser("eval", help="ground-truth accuracy of a segments.csv")
@@ -322,12 +519,38 @@ def main(argv=None) -> int:
     pe.add_argument("--wbt", help="ground truth from a Webots world file")
     pe.add_argument("--angle-threshold", type=float, default=0.1)
     pe.add_argument("--distance-threshold", type=float, default=0.5)
+    pe.add_argument("--plots", action="store_true")
     pe.set_defaults(fn=cmd_eval)
+
+    pv = sub.add_parser("viz", help="viz-stream JSONL -> interactive HTML player")
+    pv.add_argument("stream", help="JSONL file from `run --viz-stream`")
+    pv.add_argument("-o", "--out", default=None, help="output .html path")
+    pv.add_argument("--follow", action="store_true",
+                    help="serve a live player that tails the JSONL while "
+                         "another process writes it (RViz-style live view)")
+    pv.add_argument("--host", default="127.0.0.1")
+    pv.add_argument("--port", type=int, default=0,
+                    help="HTTP port for --follow (0 = ephemeral)")
+    pv.set_defaults(fn=cmd_viz)
+
+    pi = sub.add_parser("inspect", help="one frame under the profiler: kernel "
+                                        "launches, device time, shape facts")
+    _add_common(pi)
+    pi.add_argument("--scene", default="obs_tests", choices=SCENES,
+                    help="simulated world whose default flight gives the frame")
+    pi.add_argument("--seed", type=int, default=0)
+    pi.set_defaults(fn=cmd_inspect)
 
     pt = sub.add_parser("timing", help="analyze a processing_time.csv")
     pt.add_argument("processing_time_csv")
     pt.add_argument("--plots", action="store_true")
     pt.set_defaults(fn=cmd_timing)
+
+    pb = sub.add_parser("bag-info", help="per-topic summary of a recorded "
+                                         "ROS1 .bag / ROS2 .mcap "
+                                         "(`rosbag info` analog)")
+    pb.add_argument("bag")
+    pb.set_defaults(fn=cmd_baginfo)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -130,3 +130,24 @@ def simulate_trajectory(scene: Sequence[Cylinder],
                   quat_wxyz=np.asarray(quat, dtype=np.float64),
                   points=render_depth(pos, quat, scene, spec, ground_plane, rng))
             for (t, pos, quat) in poses]
+
+
+def cylinder_surface_cloud(cyl: Cylinder, n: int, seed: int = 0,
+                           noise: float = 0.0) -> np.ndarray:
+    """Uniform samples on a cylinder's lateral surface (property-test helper)."""
+    rng = np.random.default_rng(seed)
+    u = np.asarray(cyl.axis)
+    # orthonormal frame around the axis
+    ref = np.array([1.0, 0.0, 0.0]) if abs(u[0]) < 0.9 else np.array([0.0, 1.0, 0.0])
+    v1 = np.cross(u, ref)
+    v1 /= np.linalg.norm(v1)
+    v2 = np.cross(u, v1)
+    h = rng.uniform(-cyl.half, cyl.half, size=n)
+    th = rng.uniform(0, 2 * np.pi, size=n)
+    pts = (np.asarray(cyl.center)[None, :]
+           + h[:, None] * u[None, :]
+           + cyl.radius * (np.cos(th)[:, None] * v1[None, :]
+                           + np.sin(th)[:, None] * v2[None, :]))
+    if noise > 0:
+        pts = pts + rng.normal(0, noise, size=pts.shape)
+    return pts

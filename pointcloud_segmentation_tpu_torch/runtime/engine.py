@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from .._malloc import cap_malloc_arenas as _cap_malloc_arenas
 from ..config import VERBOSE_INFO, VERBOSE_NONE, PipelineConfig
 from ..convert import (read_checkpoint, read_oracle_checkpoint,
                        world_state_from_numpy, world_state_to_numpy,
@@ -560,6 +561,7 @@ class SegmentationEngine:
         Restart-safe: a mailbox closed by an earlier stop() is replaced."""
         if self._worker is not None:
             return
+        _cap_malloc_arenas()   # a no-op if the package import did it
         if self.mailbox.closed:
             # dropped_frames stays cumulative across restarts
             self._dropped_before = self.dropped_frames

@@ -2,12 +2,14 @@
 (--device cpu, the plain versions of the kernels), held against the JAX
 package's CLI on the same arguments: run/eval/timing, record + run --replay
 with --max-frames, stream, serve, the scene flags and the orphan-flag
-refusal."""
+refusal; then run/record --bag with the topic flags, bag-info, viz, --plots
+and inspect."""
 
 import contextlib
 import io
 import json
 import os
+import struct
 import subprocess
 import sys
 from types import SimpleNamespace
@@ -254,3 +256,226 @@ def test_cli_runs_a_float64_yaml_end_to_end(tmp_path):
     bad.write_text("compute_dtype: float16\n")
     with pytest.raises(ValueError, match="compute_dtype"):
         PipelineConfig.from_yaml(str(bad))
+
+
+# ------------------------------------------- recorded bags, viz, bag-info, inspect
+
+def two_cloud_topic_bag(path, frames):
+    """A record-everything ROS1 capture of `frames`: /tof_pc, the node's
+    republished /filtered_pointcloud (the same clouds) and one pose topic."""
+    from pointcloud_segmentation_tpu_torch.io import rosbag as R
+
+    def conn(i, topic, mtype):
+        hdr = (R._field("op", bytes([0x07])) + R._field("conn", struct.pack("<I", i))
+               + R._field("topic", topic))
+        return R._record(hdr, R._field("topic", topic) + R._field("type", mtype))
+
+    def msg(i, t, payload):
+        return R._record(R._field("op", bytes([0x02])) + R._field("conn", struct.pack("<I", i))
+                         + R._field("time", R._enc_time(t)), payload)
+
+    with open(path, "wb") as f:
+        f.write(R._MAGIC)
+        f.write(conn(0, b"/tof_pc", b"sensor_msgs/PointCloud2"))
+        f.write(conn(1, b"/filtered_pointcloud", b"sensor_msgs/PointCloud2"))
+        f.write(conn(2, b"/mavros/local_position/pose", b"geometry_msgs/PoseStamped"))
+        for k, fr in enumerate(frames):
+            f.write(msg(2, fr.t, R._ser_posestamped(fr.t, fr.position, fr.quat_wxyz, k)))
+            for i in (0, 1):
+                f.write(msg(i, fr.t, R._ser_pointcloud2(fr.t, fr.points, k)))
+    return path
+
+
+@pytest.fixture(scope="module")
+def bags(tmp_path_factory):
+    """Six simulated frames recorded to a .pcsl log, and written from it as a
+    bz2 ROS1 bag, an MCAP file and a bag with two cloud topics."""
+    from pointcloud_segmentation_tpu_torch.io import mcap, rosbag
+
+    base = tmp_path_factory.mktemp("cli_bags")
+    log = str(base / "sim.pcsl")
+    assert port("record", log, "--hz", "1.5", "--velocity", "0.4", "--max-frames", "6")[0] == 0
+    frames = load_frames(log)
+    bag, mc, two = str(base / "flight.bag"), str(base / "flight.mcap"), str(base / "two.bag")
+    assert rosbag.frames_to_bag(bag, frames, compression="bz2") == 12
+    assert mcap.frames_to_mcap(mc, frames) == 12
+    two_cloud_topic_bag(two, frames)
+    return SimpleNamespace(base=base, log=log, frames=frames, bag=bag, mcap=mc, two=two)
+
+
+def read_bytes(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("container", ["bag", "mcap"])
+def test_cli_run_bag_equals_run_replay_of_the_recorded_bag(bags, tmp_path, container):
+    """`record --bag` converts the recording; `run --bag` of the recording
+    and `run --replay` of the converted log write the same segments.csv and
+    intersections.csv byte for byte."""
+    src = getattr(bags, container)
+    log = str(tmp_path / "from_bag.pcsl")
+    rc, text, _ = port("record", log, "--bag", src)
+    assert rc == 0 and text.strip() == f"recorded 6 frames -> {log}"
+    back = load_frames(log)
+    for a, b in zip(back, bags.frames):
+        assert a.points.tobytes() == b.points.tobytes() and abs(a.t - b.t) < 1e-9
+    o_bag, o_log = str(tmp_path / "bag"), str(tmp_path / "log")
+    run = ["run", "--granularity", "2", "--device", "cpu"]
+    rc, text, _ = port(*run, "--bag", src, "--out", o_bag)
+    assert rc == 0 and text.startswith("6 frames ->")
+    assert port(*run, "--replay", log, "--out", o_log)[0] == 0
+    for name in ("segments.csv", "intersections.csv"):
+        assert read_bytes(os.path.join(o_bag, name)) == read_bytes(os.path.join(o_log, name))
+    assert len(read_segments_csv(os.path.join(o_bag, "segments.csv"))) >= 3
+
+
+def test_cli_run_bag_within_2e_2_of_the_jax_cli(bags, tmp_path):
+    t_out, j_out = str(tmp_path / "t"), str(tmp_path / "j")
+    args = ["--granularity", "2", "--bag", bags.bag, "--max-frames", "5"]
+    rc, text, _ = port("run", "--device", "cpu", "--out", t_out, *args)
+    jrc, jtext, _ = call(JCLI.main, "run", "--backend", "jax", "--out", j_out, *args)
+    assert rc == jrc == 0
+    assert text.splitlines()[0] == jtext.splitlines()[0]
+    assert text.startswith("5 frames ->")
+    got = read_segments_csv(os.path.join(t_out, "segments.csv"))
+    want = read_segments_csv(os.path.join(j_out, "segments.csv"))
+    assert len(got) == len(want) >= 3
+    for s, w in zip(got, want):
+        (p1, p2), (q1, q2) = endpoints(s), endpoints(w)
+        assert max(np.abs(p1 - q1).max(), np.abs(p2 - q2).max()) < 2e-2
+    with open(os.path.join(t_out, "intersections.csv")) as a, \
+            open(os.path.join(j_out, "intersections.csv")) as b:
+        assert len(a.readlines()) == len(b.readlines())
+
+
+def test_cli_record_bag_honours_max_frames_and_topic_flags(bags, tmp_path):
+    log, jlog = str(tmp_path / "t.pcsl"), str(tmp_path / "j.pcsl")
+    args = ["--bag", bags.two, "--cloud-topic", "/filtered_pointcloud",
+            "--pose-topic", "/mavros/local_position/pose", "--max-frames", "4"]
+    rc, text, _ = port("record", log, *args)
+    assert rc == 0 and text.strip() == f"recorded 4 frames -> {log}"
+    assert call(JCLI.main, "record", jlog, *args)[0] == 0
+    assert read_bytes(log) == read_bytes(jlog)
+
+
+@pytest.mark.parametrize("source", ["bag", "mcap", "two"])
+def test_cli_bag_info_prints_the_jax_commands_lines(bags, source):
+    path = getattr(bags, source)
+    rc, text, _ = port("bag-info", path)
+    jrc, jtext, _ = call(JCLI.main, "bag-info", path)
+    assert rc == jrc == 0 and text == jtext
+    assert "poses: /mavros/local_position/pose" in text
+    if source == "two":
+        assert "clouds: AMBIGUOUS — pass --cloud-topic (candidates: " \
+               "/filtered_pointcloud, /tof_pc)" in text
+    else:
+        assert "clouds: /tof_pc" in text and "6 msgs" in text
+
+
+def test_cli_cloud_topic_resolves_an_ambiguous_bag(bags, tmp_path):
+    run = ["run", "--granularity", "2", "--device", "cpu", "--bag", bags.two]
+    errs = []
+    for main in (TCLI.main, JCLI.main):
+        with pytest.raises(IOError, match="2 topics carry PointCloud2") as e:
+            call(main, *run[:3], *run[5:], "--out", str(tmp_path / "no"))
+        errs.append(str(e.value))
+    assert errs[0] == errs[1] and "/filtered_pointcloud" in errs[0] and "/tof_pc" in errs[0]
+    assert not os.path.exists(tmp_path / "no")
+    with pytest.raises(IOError, match="requested topic '/typo'"):
+        port(*run, "--cloud-topic", "/typo", "--out", str(tmp_path / "no"))
+    out, ref = str(tmp_path / "picked"), str(tmp_path / "plain")
+    rc, text, _ = port(*run, "--cloud-topic", "/tof_pc", "--out", out)
+    assert rc == 0 and text.startswith("6 frames ->")
+    assert port("run", "--granularity", "2", "--device", "cpu", "--bag", bags.bag,
+                "--out", ref)[0] == 0
+    assert read_bytes(os.path.join(out, "segments.csv")) == \
+        read_bytes(os.path.join(ref, "segments.csv"))
+
+
+def test_cli_run_bag_on_the_default_device_raises_without_a_card(bags, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device runs")
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        port("run", "--bag", bags.bag, "--out", str(tmp_path / "o"))
+    assert not os.path.exists(tmp_path / "o" / "segments.csv")
+
+
+def test_cli_viz_renders_the_stream_of_run_bag(bags, tmp_path):
+    stream = str(tmp_path / "flight.jsonl")
+    rc, text, _ = port("run", "--granularity", "2", "--device", "cpu", "--bag", bags.mcap,
+                       "--max-frames", "4", "--out", str(tmp_path / "o"),
+                       "--viz-stream", stream)
+    assert rc == 0 and f"  viz stream: {stream}" in text
+    rc, text, _ = port("viz", stream)
+    html = str(tmp_path / "flight.html")
+    assert rc == 0 and text.strip() == f"4 frames -> {html}"
+    jhtml = str(tmp_path / "j.html")
+    jrc, jtext, _ = call(JCLI.main, "viz", stream, "-o", jhtml)
+    assert jrc == 0 and jtext.strip() == f"4 frames -> {jhtml}"
+    assert open(html).read() == open(jhtml).read().replace(
+        "<title>pointcloud_segmentation_tpu</title>",
+        "<title>pointcloud_segmentation_tpu_torch</title>")
+    assert open(html).read().count('"frame": ') == 4
+
+
+def test_cli_viz_follow_serves_the_live_player(tmp_path):
+    import urllib.request
+
+    stream = str(tmp_path / "live.jsonl")
+    with open(stream, "w") as f:
+        f.write(json.dumps({"frame": 1, "t": 0.0, "nlines": 0, "status": 0, "world_count": 0,
+                            "cylinders": [], "intersections": []}) + "\n")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pointcloud_segmentation_tpu_torch", "viz", stream, "--follow"],
+        cwd=REPO, env=dict(os.environ, OMP_NUM_THREADS="2"), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        first = proc.stdout.readline()
+        assert first.startswith("live player: http://127.0.0.1:"), proc.stderr.read()
+        url = first.split()[2]
+        with urllib.request.urlopen(url + "stream?from=0", timeout=10) as r:
+            resp = json.loads(r.read())
+        assert resp["next"] == 1 and resp["frames"][0]["frame"] == 1
+    finally:
+        proc.kill()
+        proc.communicate()
+
+
+def test_cli_inspect_prints_the_jax_commands_shape_facts(capfd):
+    """`inspect --device cpu`: the shape and capacity facts of the JAX
+    command with equal values, the frame's wall time and lines, and none of
+    the card's fields."""
+    rc, text, _ = port("inspect", "--granularity", "2", "--device", "cpu")
+    jrc, jtext, _ = call(JCLI.main, "inspect", "--granularity", "2")
+    assert rc == jrc == 0
+    info, jinfo = json.loads(text), json.loads(jtext)
+    facts = ("granularity", "num_directions", "num_x_max", "max_points", "max_world_segments")
+    assert {k: info[k] for k in facts} == {k: jinfo[k] for k in facts}
+    assert info["granularity"] == 2 and info["num_directions"] == 81
+    assert info["backend"] == "torch" and info["device"] == "cpu"
+    assert info["frame"] == 10 and info["nlines"] >= 1 and info["wall_ms"] > 0
+    for k in ("kernel_launches", "device_us", "vote_state_launches", "vote_histogram_launches",
+              "flops", "bytes_accessed"):
+        assert k not in info
+    assert "flops" in jinfo
+
+
+@pytest.mark.parametrize("command", ["run", "eval"])
+def test_cli_plots_write_the_jax_clis_files(bags, tmp_path, command):
+    pytest.importorskip("matplotlib")
+    out = str(tmp_path / "o")
+    args = ["run", "--granularity", "2", "--device", "cpu", "--replay", bags.log, "--out", out]
+    rc, text, _ = port(*args, *(["--plots"] if command == "run" else []))
+    assert rc == 0
+    if command == "run":
+        assert text.splitlines()[-1] == f"  plots: {out}/world.png"
+        names = ("world.png", "errors.png")
+    else:
+        rc, text, _ = port("eval", os.path.join(out, "segments.csv"), "--plots")
+        jrc, jtext, _ = call(JCLI.main, "eval", os.path.join(out, "segments.csv"), "--plots")
+        assert rc == jrc == 0 and text == jtext
+        assert text.splitlines()[-1] == f"plots: {out}/eval_world.png"
+        names = ("eval_world.png", "eval_errors.png")
+    for name in names:
+        assert read_bytes(os.path.join(out, name))[:4] == b"\x89PNG"

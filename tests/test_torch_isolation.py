@@ -3,8 +3,9 @@ its copies of the JAX package's framework-free code (config, sphere,
 quat_to_rot, the scenes and the simulator, the replay codec, the mailbox,
 the pose buffer, the CSV writers, the intersection rows, the viz point
 helpers, eval, the server's wire format, the numpy oracle with its geometry
-helpers, and the parity soak's draws and bookkeeping) give the same values
-as the originals."""
+helpers, the parity soak's draws and bookkeeping, the ROS1 bag and MCAP
+readers and writers, the ROS bridge, viz and the malloc arena cap) give the
+same values as the originals."""
 
 import ast
 import dataclasses
@@ -67,7 +68,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout) >= 18
+    assert int(out.stdout) >= 29
 
 
 def _forbidden(name: str) -> bool:
@@ -106,9 +107,11 @@ def test_no_source_of_the_port_imports_the_jax_package():
              os.path.join(REPO, "tools", "parity_soak_torch.py")]
     for root, _, files in os.walk(PORT):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
-    assert len(paths) >= 23
+    assert len(paths) >= 38
     rels = {os.path.relpath(p, PORT).replace(os.sep, "/") for p in paths}
-    assert {"oracle/__init__.py", "oracle/pipeline.py", "oracle/_geometry.py"} <= rels
+    assert {"oracle/__init__.py", "oracle/pipeline.py", "oracle/_geometry.py",
+            "io/rosbag.py", "io/mcap.py", "io/ros_bridge.py", "viz.py", "_malloc.py",
+            "cli.py"} <= rels
     found = {}
     for p in paths:
         rel = os.path.relpath(p, REPO).replace(os.sep, "/")
@@ -431,10 +434,15 @@ def _server_wire():
         JSRV.MSG_FRAME, JSRV.MSG_QUERY, JSRV.MSG_FINAL, JSRV.MSG_SNAP)
 
 
-def _code_without_imports_and_docstrings(path):
+def _code_without_imports_and_docstrings(path, renames=()):
     """ast.dump of a module with its imports and every docstring taken out
-    (comments are no part of the tree)."""
-    tree = ast.parse(open(path).read())
+    (comments are no part of the tree), after the (old, new) text `renames`
+    of its source."""
+    src = open(path).read()
+    for old, new in renames:
+        assert old in src, old
+        src = src.replace(old, new)
+    tree = ast.parse(src)
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
         if not isinstance(body, list):
@@ -534,7 +542,68 @@ def _parity_soak():
     assert os.path.basename(tsoak.ARTIFACT) == "SOAK_torch.json"
 
 
+# the program's and the package's name in strings: what a copy of the port may
+# change in code that is otherwise the original's
+PORT_NAMES = {
+    "io/rosbag.py": (('"pcs_torch.rosbag"', '"pcs_tpu.rosbag"'),
+                     ("`pcs-torch bag-info`", "`pcs-tpu bag-info`")),
+    "io/mcap.py": (('"pcs_torch.mcap"', '"pcs_tpu.mcap"'),
+                   ('_mstr("pcs-torch")', '_mstr("pcs-tpu")')),
+    "io/ros_bridge.py": (),
+    "viz.py": (('"pointcloud_segmentation_tpu_torch"', '"pointcloud_segmentation_tpu"'),
+               ('"pointcloud_segmentation_tpu_torch (live)"',
+                '"pointcloud_segmentation_tpu (live)"')),
+    "_malloc.py": (('"pointcloud_segmentation_tpu_torch"', '"pointcloud_segmentation_tpu"'),),
+}
+
+
+def _sensor_and_display_copies():
+    """io/rosbag.py, io/mcap.py, io/ros_bridge.py, viz.py and _malloc.py hold
+    the original's code but for imports, docstrings and the program's name;
+    the modules they are wired to are the port's own."""
+    from pointcloud_segmentation_tpu_torch import _malloc as TMALLOC
+    from pointcloud_segmentation_tpu_torch import viz as TVIZ
+    from pointcloud_segmentation_tpu_torch.io import mcap as TMCAP
+    from pointcloud_segmentation_tpu_torch.io import ros_bridge as TBRIDGE
+    from pointcloud_segmentation_tpu_torch.io import rosbag as TBAG
+
+    for rel, renames in PORT_NAMES.items():
+        assert _code_without_imports_and_docstrings(
+            os.path.join(PORT, rel), renames) == _code_without_imports_and_docstrings(
+            os.path.join(REPO, JAX_PKG, rel)), rel
+    assert TBAG.Frame is TSIM.Frame and TMCAP.rosbag is TBAG
+    assert TBRIDGE.SegmentationEngine is TENG.SegmentationEngine
+    for mod in (TBAG, TMCAP, TBRIDGE, TVIZ, TMALLOC):
+        assert mod.__name__.startswith("pointcloud_segmentation_tpu_torch.")
+    frames = TBAG.bag_to_frames.__globals__
+    assert "PoseBuffer" not in frames      # imported in the call, from the port:
+    assert TMALLOC._applied is True        # the package import applied the cap
+    TMALLOC.cap_malloc_arenas()            # and a second call is a no-op
+    assert TENG._cap_malloc_arenas is TMALLOC.cap_malloc_arenas
+
+
+def _io_exports():
+    """io/__init__.py exports the JAX package's names, and the package's
+    own names are the JAX package's that exist in the port."""
+    import pointcloud_segmentation_tpu as JPKG
+    import pointcloud_segmentation_tpu.io as JIO
+    import pointcloud_segmentation_tpu_torch as TPKG
+    import pointcloud_segmentation_tpu_torch.io as TIO
+
+    assert TIO.__all__ == JIO.__all__
+    assert all(getattr(TIO, name) is not None for name in TIO.__all__)
+    assert TIO.bag_to_frames.__module__ == "pointcloud_segmentation_tpu_torch.io.rosbag"
+    assert set(JPKG.__all__) - set(TPKG.__all__) == {"make_process_frame"}
+    assert TPKG.__version__ == JPKG.__version__
+    assert TPKG.viz.__name__ == "pointcloud_segmentation_tpu_torch.viz"
+    beam = TSC.OBS_TESTS_SCENE[2]
+    for kw in (dict(n=50, seed=5), dict(n=64, seed=1, noise=0.01)):
+        assert np.array_equal(TSIM.cylinder_surface_cloud(beam, **kw),
+                              JSIM.cylinder_surface_cloud(JSC.OBS_TESTS_SCENE[2], **kw))
+
+
 PARITY = {
+    "sensor_and_display_copies": _sensor_and_display_copies, "io_exports": _io_exports,
     "config_default": _config_default, "config_yaml": _config_yaml,
     "config_grid": _config_grid, "hough_space": _hough_space,
     "quat_to_rot": _quat_to_rot, "simulate_trajectory": _simulate_trajectory,
