@@ -22,9 +22,20 @@ refused before a frame reaches the engine; the frames as PointCloud2 and
 PoseStamped objects through the ROS bridge's callbacks; record --bag, run
 --bag, bag-info, viz and inspect in subprocesses; and the live player
 following a running stream.
+After those, sharded execution and the deferred read-back: both kernels
+against their plain versions at the shapes a direction shard gives them (half
+and a quarter of the g6 table, half of the g4 table); parallel.spawn's ranks
+on the one card (1 rank over NCCL; 2 and 4 ranks over gloo, sharing the card)
+running the g6 replay through make_tp_process_frame with the table split 1, 2
+and 4 ways, the g4 replay split 2 ways, and a 2x2 mesh through
+make_multichip_step and make_batched_extract, every rank bit-equal to the
+one-rank run and launching the kernels itself; a rank that raises fails the
+call; then deferred streams (stream_sync_every 64, 8 and 1, lockstep and at
+30 Hz, three times each) and the pipelined replay against the synchronous
+replay.
 
     python3 chip_smoke.py [--earlier path/to/an/earlier/voting.cu]
-                          [--parity-only | --sensor-only]
+                          [--parity-only | --sensor-only | --shard-only]
 
 Needs one CUDA card and nvcc; exits non-zero on any failure.  With
 --earlier, the kernels of that source (same C entries) are built too and
@@ -32,7 +43,7 @@ timed beside this checkout's at the NX 79 main-path shapes.  With
 --parity-only, the kernel table, the golden fixtures and the node loop are
 left out (for work on the parity stack; the last lines are printed only by a
 whole run); --sensor-only does the same for the sensor-data and display
-phases.  It prints the
+phases, and --shard-only for the sharded and deferred phases.  It prints the
 card's name and power limit, one line per check and time, then a JSON line
 of the kernels, the card line again, and last the JSON line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -58,6 +69,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed
 
 # H100 SXM peaks (NVIDIA's data sheet): float32 outside the tensor cores, an
 # FMA counted as two operations; HBM3
@@ -330,6 +342,8 @@ def kernel_checks(dev, frame, card, earlier=None):
         live = torch.ones(n_rem, dtype=torch.bool, device=dev)
         sh.histogram(f"a {n_rem}-column delta", (Xr, live, half4, dx4, nx4, NX),
                      c14, c24, timed=timed)
+        if timed:
+            shard_shape_checks(sh, cfg6, cfg4, p6, p4, dev)
         if radius == 0.015:
             sh.time("vote_state", "the full g6 table", Xs, act, c16, c26, half, dx, nx, NX)
             sh.time("vote_histogram", "g4", X4, act4, c14, c24, half4, dx4, nx4, NX)
@@ -369,6 +383,32 @@ def kernel_checks(dev, frame, card, earlier=None):
     sh.state("N = 20,000 (points staged in chunks)", pc, c16, c26)
     sh.histogram("N = 20,000 (points staged in chunks)", pc, c14, c24)
     return sh
+
+
+SHARD_LABEL = "a direction shard, {gran}, 1 of {n}"
+
+
+def shard_shape_checks(sh, cfg6, cfg4, p6, p4, dev):
+    """Each kernel against its plain version at the row counts a direction
+    shard gives it: the table padded to a multiple of n_dir with copies of
+    direction 0, cut into n_dir slices, each padded to a multiple of 128.
+    The last slice is the one that holds the copies."""
+    from pointcloud_segmentation_tpu_torch.ops.hough import _pad_dirs_to_tile
+    from pointcloud_segmentation_tpu_torch.parallel.sharding import _padded_dir_tables
+
+    for cfg, p, n_dir, check in ((cfg6, p6, 2, sh.state), (cfg6, p6, 4, sh.state),
+                                 (cfg4, p4, 2, sh.histogram)):
+        tables = _padded_dir_tables(cfg, n_dir, dev)
+        rows = tables[0].shape[0] // n_dir
+        for k in (0, n_dir - 1):
+            _, c1, c2 = _pad_dirs_to_tile(*(t[k * rows:(k + 1) * rows].contiguous()
+                                            for t in tables))
+            label = SHARD_LABEL.format(gran=f"g{cfg.granularity}", n=n_dir)
+            if k:
+                label += " (the last slice)"
+            check(label, p, c1.contiguous(), c2.contiguous(), timed=(k == 0))
+        print(f"      g{cfg.granularity} table of {tables[0].shape[0]} rows over n_dir "
+              f"{n_dir}: {rows} rows a rank, {c1.shape[0]} after tile padding", flush=True)
 
 
 def endpoints(s):
@@ -497,10 +537,13 @@ def launches_of(label, voting, name="vote_state") -> int:
 
 def counted_run(label, cfg, frames, dev, name):
     """One path of the main path, its kernel's launch count set to 0 just
-    before and read just after; returns (run, launches)."""
+    before and read just after; returns (run, launches).  The run keeps its
+    calls by (rows, points) under "shapes"."""
     voting = counted_voting()
     run = replay(cfg, frames, dev, voting)
-    return run, launches_of(label, voting, name)
+    n = launches_of(label, voting, name)
+    run["shapes"] = dict(getattr(voting, name).shapes)
+    return run, n
 
 
 def same_state(a, b) -> bool:
@@ -529,7 +572,9 @@ def lockstep_stream(cfg, frames, ref, tmp, card):
         f"the replay written to a .pcsl log and read back: {len(back)} frames, bit-equal")
     viz = os.path.join(tmp, "lockstep_viz.jsonl")
     voting = counted_voting()
-    eng = SegmentationEngine(cfg, voting=voting, viz_stream=viz)
+    # one viz record a frame (the synchronous worker); deferred_phase holds
+    # the default, one record a read-back batch
+    eng = SegmentationEngine(cfg, voting=voting, viz_stream=viz, viz_every_frame=True)
     eng.start()
     t0 = time.perf_counter()
     try:
@@ -1044,7 +1089,7 @@ def live_player_phase(cfg6, frames, tmp):
 
     stream = os.path.join(tmp, "live.jsonl")
     voting = counted_voting()
-    eng = SegmentationEngine(cfg6, voting=voting, viz_stream=stream)
+    eng = SegmentationEngine(cfg6, voting=voting, viz_stream=stream, viz_every_frame=True)
     srv = VizStreamServer(stream)
     th = srv.start_background()
     part = frames[:10]
@@ -1363,6 +1408,341 @@ def parity_stack(cfg6, cfg4, frames, k6, dev, card, tmp):
           flush=True)
 
 
+# ------------------------------------------- sharded execution, deferred read-back
+
+SEG_FIELDS = ("a", "b", "t_min", "t_max", "radius", "points_size", "valid")
+
+
+def rank_inputs(cfg, frames, dev):
+    """The frames as the engine hands them to process_frame: clouds padded
+    with NaN rows to max_raw_points, poses in float32, on the rank's card."""
+    n_raw = cfg.shapes.max_raw_points
+    clouds = np.full((len(frames), n_raw, 3), np.nan, np.float32)
+    for i, fr in enumerate(frames):
+        k = min(len(fr.points), n_raw)
+        clouds[i, :k] = fr.points[:k]
+    poss = np.stack([np.asarray(fr.position, np.float32) for fr in frames])
+    quats = np.stack([np.asarray(fr.quat_wxyz, np.float32) for fr in frames])
+    return tuple(torch.from_numpy(a).to(dev) for a in (clouds, poss, quats))
+
+
+def rank_tp_replay(cfg, frames, n_dir, dev, kernel):
+    """One rank's share of a replay through make_tp_process_frame on a
+    1 x n_dir mesh: the world state, each frame's counters and segments, the
+    rank's own launches and ms a frame."""
+    from pointcloud_segmentation_tpu_torch.convert import world_state_to_numpy
+    from pointcloud_segmentation_tpu_torch.parallel import make_mesh, make_tp_process_frame
+    from pointcloud_segmentation_tpu_torch.worldmap import init_world
+
+    mesh = make_mesh(1, n_dir, dev)
+    voting = counted_voting()
+    step = make_tp_process_frame(cfg, mesh, voting)
+    clouds, poss, quats = rank_inputs(cfg, frames, dev)
+    state, counters, segs, ms = init_world(cfg, dev), [], [], []
+    for i in range(len(frames)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, out = step(state, clouds[i], poss[i], quats[i])
+        counters.append(torch.stack([out.nlines, out.status, out.world_count]).tolist())
+        ms.append((time.perf_counter() - t0) * 1e3)
+        segs.append({f: getattr(out.segments, f).cpu().numpy() for f in SEG_FIELDS})
+    from pointcloud_segmentation_tpu_torch.ops import voting as V
+
+    calls = getattr(voting, kernel).shapes
+    launches = getattr(V, kernel).launches
+    if launches != sum(calls.values()):
+        fail(f"{kernel}: {launches} launches for {sum(calls.values())} calls")
+    return {"state": world_state_to_numpy(state), "counters": np.array(counters),
+            "segs": {f: np.stack([s[f] for s in segs]) for f in SEG_FIELDS},
+            "launches": launches, "shapes": {str(k): v for k, v in calls.items()},
+            "ms": ms, "backend": torch.distributed.get_backend(),
+            "collectives": 0 if mesh.dir_group is None else mesh.dir_group.collectives}
+
+
+def rank_mesh_2x2(cfg, frames, dev):
+    """make_multichip_step and make_batched_extract on a 2 x 2 mesh."""
+    from pointcloud_segmentation_tpu_torch.convert import world_state_to_numpy
+    from pointcloud_segmentation_tpu_torch.ops import voting as V
+    from pointcloud_segmentation_tpu_torch.parallel import (
+        make_batched_extract, make_mesh, make_multichip_step)
+    from pointcloud_segmentation_tpu_torch.worldmap import init_world
+
+    mesh = make_mesh(2, 2, dev)
+    inputs = rank_inputs(cfg, frames, dev)
+    V.vote_state.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, nlines, statuses = make_multichip_step(cfg, mesh)(init_world(cfg, dev), *inputs)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    step_launches, V.vote_state.launches = V.vote_state.launches, 0
+    segs, nl2, st2 = make_batched_extract(cfg, mesh)(*inputs)
+    return {"state": world_state_to_numpy(state), "nlines": nlines.cpu().numpy(),
+            "status": statuses.cpu().numpy(), "step_ms": step_ms,
+            "segs": {f: getattr(segs, f).cpu().numpy() for f in SEG_FIELDS},
+            "extract_nlines": nl2.cpu().numpy(), "extract_status": st2.cpu().numpy(),
+            "launches": step_launches, "extract_launches": V.vote_state.launches}
+
+
+def sharded_rank(rank, dev, jobs):
+    """What each spawned rank runs: the jobs in order, by name."""
+    out = {}
+    for name, kind, kw in jobs:
+        if kind == "tp":
+            out[name] = rank_tp_replay(dev=dev, **kw)
+        elif kind == "mesh":
+            out[name] = rank_mesh_2x2(dev=dev, **kw)
+        elif kind == "raise" and rank == kw["rank"]:
+            raise ZeroDivisionError("a rank that fails on purpose")
+        elif kind == "raise":
+            torch.distributed.barrier()
+    return out
+
+
+def same_rank_run(got, want, label):
+    """One rank's replay against the one-rank run's: world state bit for
+    bit, counters and every frame's segments equal."""
+    check(same_state(got["state"], want["state"]), f"{label}: world state bit-identical "
+          f"to the one-rank run's")
+    check(np.array_equal(got["counters"], want["counters"])
+          and all(np.array_equal(got["segs"][f], want["segs"][f], equal_nan=True)
+                  for f in SEG_FIELDS),
+          f"{label}: nlines, status, world count and every frame segment (points_size "
+          f"among them) equal on each of {len(got['counters'])} frames")
+
+
+def shard_phase(cfg6, cfg4, frames, k6, dev, card, sh):
+    """parallel.spawn's 1, 2 and 4 ranks on the cards there are.  Ranks that
+    outnumber the cards share them over gloo, their collectives copied
+    through the host (2 and 4 ranks on one card); ranks with a card each run
+    over NCCL (1 rank always; 2 and 4 ranks where there are that many cards).
+    Every check is the same under both."""
+    from pointcloud_segmentation_tpu_torch.parallel import spawn
+    from pointcloud_segmentation_tpu_torch.parallel.sharding import backend_for
+
+    n_cards = torch.cuda.device_count()
+    g4_frames = frames[:12]
+    tp6 = dict(cfg=cfg6, frames=frames, kernel="vote_state")
+    tp4 = dict(cfg=cfg4, frames=g4_frames, kernel="vote_histogram")
+    t0 = time.perf_counter()
+    one = spawn(sharded_rank, 1, "cuda", args=([
+        ("g6", "tp", dict(tp6, n_dir=1)), ("g4", "tp", dict(tp4, n_dir=1))],))[0]
+    check(one["g6"]["backend"] == backend_for("cuda", 1) == "nccl",
+          "one rank on a 1x1 mesh runs over NCCL")
+    check(same_state(one["g6"]["state"], k6["state"]),
+          f"1 rank, make_tp_process_frame over {len(frames)} frames: world state "
+          f"bit-identical to the g6 replay's")
+    check([tuple(c) for c in one["g6"]["counters"]]
+          == [(r["nblines"], r["status"], r["seg_vec_size"]) for r in k6["records"]],
+          "1 rank: per-frame nlines, status and world count equal the g6 replay's")
+    ref4 = replay(cfg4, g4_frames, dev, counted_voting())
+    check(same_state(one["g4"]["state"], ref4["state"]),
+          "1 rank, g4 carry over 12 frames: world state bit-identical to the g4 replay's")
+
+    two = spawn(sharded_rank, 2, "cuda", args=([
+        ("g6", "tp", dict(tp6, n_dir=2)), ("g4", "tp", dict(tp4, n_dir=2))],))
+    four = spawn(sharded_rank, 4, "cuda", args=([
+        ("g6", "tp", dict(tp6, n_dir=4)),
+        ("mesh", "mesh", dict(cfg=cfg6, frames=frames[:8]))],))
+    want_backend = "nccl" if n_cards >= 4 else "gloo"
+    check(two[0]["g6"]["backend"] == backend_for("cuda", 2)
+          and four[0]["g6"]["backend"] == backend_for("cuda", 4) == want_backend,
+          f"{n_cards} card(s): 2 ranks run over {two[0]['g6']['backend']}, 4 over "
+          f"{four[0]['g6']['backend']}, chosen from the rank and card counts")
+    launches = {}
+    for n_dir, runs in ((2, two), (4, four)):
+        for r, run in enumerate(runs):
+            same_rank_run(run["g6"], one["g6"], f"g6, n_dir {n_dir}, rank {r}")
+            check(run["g6"]["launches"] > 0,
+                  f"g6, n_dir {n_dir}, rank {r} launched vote_state {run['g6']['launches']} "
+                  f"times, on every call; by (rows, points) {run['g6']['shapes']}")
+        launches[("vote_state", n_dir)] = runs[0]["g6"]["shapes"]
+    for r, run in enumerate(two):
+        same_rank_run(run["g4"], one["g4"], f"g4 carry, n_dir 2, rank {r}")
+        check(run["g4"]["launches"] > 0,
+              f"g4, n_dir 2, rank {r} launched vote_histogram {run['g4']['launches']} times, "
+              f"on every call; by (rows, points) {run['g4']['shapes']}")
+    launches[("vote_histogram", 2)] = two[0]["g4"]["shapes"]
+
+    ref8 = replay(cfg6, frames[:8], dev, counted_voting())
+    for r, run in enumerate(four):
+        m = run["mesh"]
+        check(same_state(m["state"], ref8["state"])
+              and m["nlines"].tolist() == [x["nblines"] for x in ref8["records"]]
+              and m["status"].tolist() == [x["status"] for x in ref8["records"]],
+              f"2x2 mesh, rank {r}: make_multichip_step on 8 frames gives the sequential "
+              f"replay's world state bit for bit, nlines and status ({m['launches']} "
+              f"vote_state launches)")
+        check(all(np.array_equal(m["segs"][f], one["g6"]["segs"][f][:8], equal_nan=True)
+                  for f in SEG_FIELDS)
+              and np.array_equal(m["extract_nlines"], one["g6"]["counters"][:8, 0])
+              and m["launches"] > 0 and m["extract_launches"] > 0,
+              f"2x2 mesh, rank {r}: make_batched_extract returns each of the 8 frames' "
+              f"segments, equal to the one-rank run's")
+
+    try:
+        spawn(sharded_rank, 2, "cuda", args=([("boom", "raise", {"rank": 1})],),
+              timeout_s=180.0)
+        fail("a rank that raised did not fail parallel.spawn")
+    except RuntimeError as e:
+        check("rank 1 failed" in str(e) and "ZeroDivisionError" in str(e),
+              "a rank that raises fails parallel.spawn in the parent, with its traceback")
+
+    def med(run):
+        return statistics.median(run["ms"][5:])
+
+    rounds = one["g6"]["launches"]
+    print(f"time  g6 replay through make_tp_process_frame, {len(frames)} frames, median "
+          f"ms/frame of rank 0 after 5 warm-up frames: 1 rank {med(one['g6']):.3f}, n_dir 2 "
+          f"{med(two[0]['g6']):.3f}, n_dir 4 {med(four[0]['g6']):.3f}; g4 carry, 12 frames: "
+          f"1 rank {med(one['g4']):.3f}, n_dir 2 {med(two[0]['g4']):.3f}; 2x2 "
+          f"make_multichip_step, 8 frames: {four[0]['mesh']['step_ms'] / 8:.3f} ms/frame. "
+          f"{n_cards} card(s): 2 ranks over {two[0]['g6']['backend']}, 4 over "
+          f"{four[0]['g6']['backend']}; over gloo the ranks share cards and their words "
+          f"go through the host, so that is what sharing costs, not a scaling figure "
+          f"[{card}]", flush=True)
+    print(f"      collectives of rank 0 over the replay: n_dir 2 {two[0]['g6']['collectives']}, "
+          f"n_dir 4 {four[0]['g6']['collectives']} (one a round, one more in a lazy "
+          f"incremental round; the one-rank run launched vote_state {rounds} times); g4 "
+          f"n_dir 2 {two[0]['g4']['collectives']}", flush=True)
+    print(f"time  the sharded phases: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    # launches at the shard shapes, for the kernels line
+    for rec in sh.times:
+        for (name, n_dir), shapes in launches.items():
+            gran = "g6" if name == "vote_state" else "g4"
+            if rec["name"] == name and rec["shape"] == SHARD_LABEL.format(gran=gran, n=n_dir):
+                rec["launches"] = shapes.get(str((rec["rows"], rec["n"])), 0)
+                check(rec["launches"] > 0, f"{name} ran {rec['launches']} times at the "
+                      f"{rec['rows']}-row shard shape that the kernel checks held")
+
+
+def deferred_lockstep(cfg, frames, ref, sync_every, tmp, tag):
+    """One lockstep stream with a plain viz stream; returns frames/s."""
+    from pointcloud_segmentation_tpu_torch import SegmentationEngine
+    from pointcloud_segmentation_tpu_torch.convert import world_state_to_numpy
+
+    viz = os.path.join(tmp, f"deferred_{tag}.jsonl")
+    voting = counted_voting()
+    eng = SegmentationEngine(cfg, voting=voting, viz_stream=viz,
+                             stream_sync_every=sync_every)
+    label = f"deferred lockstep, stream_sync_every {sync_every}, run {tag}"
+    check(eng._stream_deferred == (sync_every > 1), f"{label}: deferred "
+          f"{eng._stream_deferred}")
+    eng.start()
+    t0 = time.perf_counter()
+    held = 0
+    try:
+        for i, fr in enumerate(frames):
+            eng.push_pose(fr.t, fr.position, fr.quat_wxyz)
+            eng.submit_cloud(fr.t, fr.points)
+            if not eng.drain(target_total=i + 1, timeout=120.0):
+                fail(f"{label}: frame {i} not accounted for in 120 s")
+            held = max(held, sum(r["seg_vec_size"] < 0 for r in list(eng.records)))
+    finally:
+        wall = time.perf_counter() - t0
+        eng.stop()
+    launches_of(label, voting)
+    eng.finalize(os.path.join(tmp, f"deferred_{tag}"))
+    n = len(frames)
+    check((eng.frames_processed, eng.dropped_frames, eng.frames_failed) == (n, 0, 0)
+          and no_sentinels(eng.records) and eng._flusher is None,
+          f"{label}: {n} processed, none dropped; up to {held} records held -1 in "
+          f"mid-stream, none after stop()")
+    check([(r["seg_vec_size"], r["nblines"]) for r in eng.records]
+          == [(r["seg_vec_size"], r["nblines"]) for r in ref["records"]]
+          and same_state(world_state_to_numpy(eng.state), ref["state"]),
+          f"{label}: seg_vec_size and nblines equal the replay's frame for frame, world "
+          f"state bit-identical")
+    with open(viz) as f:
+        recs = [json.loads(line) for line in f]
+    if sync_every > 1:
+        check(held > 0 and recs and all(r.get("viz_cadence") == "flush" for r in recs)
+              and sum(r["frames_in_batch"] for r in recs) == n
+              and all(len(r["cylinders"]) == r["world_count"] for r in recs)
+              and set(recs[-1]) == VIZ_KEYS | {"viz_cadence", "frames_in_batch"},
+              f"{label}: {len(recs)} flush-cadence viz record(s) covering all {n} frames")
+    else:
+        check(held == 0 and len(recs) == n and all(set(r) == VIZ_KEYS for r in recs),
+              f"{label}: {len(recs)} per-frame viz records, no record ever held -1")
+    return eng.frames_processed / wall
+
+
+def deferred_phase(cfg, frames, ref, log, dev, card, tmp):
+    """The deferred read-back on the card against the synchronous one, each
+    three times in turn, and the pipelined replay."""
+    from pointcloud_segmentation_tpu_torch import SegmentationEngine
+    from pointcloud_segmentation_tpu_torch.convert import world_state_to_numpy
+
+    t0 = time.perf_counter()
+    n = len(frames)
+    rates = {64: [], 8: [], 1: []}
+    for rep in range(3):
+        for sync_every in (64, 8, 1):
+            rates[sync_every].append(
+                deferred_lockstep(cfg, frames, ref, sync_every, tmp, f"{sync_every}_{rep}"))
+
+    def spread(v):
+        return f"median {statistics.median(v):.3f}, {min(v):.3f} to {max(v):.3f}"
+
+    print(f"time  deferred lockstep stream, {n} frames, processed frames/s over 3 runs "
+          f"each, in turns: stream_sync_every 64 {spread(rates[64])}; 8 {spread(rates[8])}; "
+          f"1 (synchronous) {spread(rates[1])} [{card}]", flush=True)
+
+    shares = {64: [], 1: []}
+    fps = {64: [], 1: []}
+    for rep in range(3):
+        for sync_every in (64, 1):
+            label = f"stream at 30 Hz, stream_sync_every {sync_every}, run {rep}"
+            voting = counted_voting()
+            eng = SegmentationEngine(cfg, voting=voting, stream_sync_every=sync_every)
+            s = eng.run_streaming_from_log(log, rate_hz=30.0)
+            launches_of(label, voting)
+            check(s["drained"] is True and s["fed"] == n == s["processed"] + s["dropped"]
+                  + s["skipped"] + s["failed"] and s["failed"] == 0
+                  and no_sentinels(eng.records) and len(eng.records) == s["processed"],
+                  f"{label}: fed {s['fed']} = {s['processed']} processed + {s['dropped']} "
+                  f"dropped; no record holds -1 after stop()")
+            shares[sync_every].append(s["dropped"] / s["fed"])
+            fps[sync_every].append(s["processed"] / (s["feed_s"] + s["drain_s"]))
+    print(f"time  stream at 30 Hz, {n} frames, 3 runs each, in turns: dropped share at "
+          f"stream_sync_every 64 {spread(shares[64])}, at 1 {spread(shares[1])}; processed "
+          f"frames/s 64 {spread(fps[64])}, 1 {spread(fps[1])} [{card}]", flush=True)
+
+    times = {"pipelined": [], "synchronous": []}
+    for pipelined in (False, True, True, False):
+        voting = counted_voting()
+        eng = SegmentationEngine(cfg, dev, voting=voting)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        recs = eng.run_replay(frames, pipelined=pipelined)
+        torch.cuda.synchronize()
+        times["pipelined" if pipelined else "synchronous"].append(
+            (time.perf_counter() - t1) * 1e3 / n)
+        if pipelined:
+            launches_of("pipelined g6 replay", voting)
+            check([(r["seg_vec_size"], r["nblines"], r["status"]) for r in recs]
+                  == [(r["seg_vec_size"], r["nblines"], r["status"]) for r in ref["records"]]
+                  and no_sentinels(eng.records)
+                  and same_state(world_state_to_numpy(eng.state), ref["state"]),
+                  "pipelined replay: records equal the synchronous replay's column for "
+                  "column after one read, world state bit-identical")
+    p, q = times["pipelined"], times["synchronous"]
+    print(f"time  replay g6, {n} frames, whole-replay ms/frame: pipelined "
+          f"{sum(p) / 2:.3f}, synchronous {sum(q) / 2:.3f} (sync, pipelined, pipelined, "
+          f"sync: {q[0]:.3f} {p[0]:.3f} {p[1]:.3f} {q[1]:.3f}) [{card}]", flush=True)
+    print(f"time  the deferred phases: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
+
+def shard_stack(cfg6, cfg4, frames, k6, dev, card, tmp, sh, log=None):
+    from pointcloud_segmentation_tpu_torch.io.replay import save_frames
+
+    if log is None:
+        log = os.path.join(tmp, "replay_deferred.pcsl")
+        save_frames(log, frames)
+    shard_phase(cfg6, cfg4, frames, k6, dev, card, sh)
+    deferred_phase(cfg6, frames, k6, log, dev, card, tmp)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one CUDA card.")
     ap.add_argument("--earlier", metavar="VOTING_CU",
@@ -1373,6 +1753,12 @@ def main() -> None:
     ap.add_argument("--sensor-only", action="store_true",
                     help="the g6 replay and the sensor-data and display phases "
                          "only; prints no result lines")
+    ap.add_argument("--shard-only", action="store_true",
+                    help="the g6 replay, the kernel checks and the sharded and "
+                         "deferred phases only; prints no result lines")
+    ap.add_argument("--ranks-only", action="store_true",
+                    help="as --shard-only without the deferred phases: on a host "
+                         "with 2 or 4 cards the ranks' collectives run over NCCL")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: chip_smoke needs a CUDA card")
@@ -1414,6 +1800,18 @@ def main() -> None:
         stack = parity_stack if args.parity_only else sensor_stack
         with tempfile.TemporaryDirectory(prefix="pcs_chip_smoke_") as tmp:
             stack(cfg6, cfg4, frames, k6, dev, card, tmp)
+        print("one stack only: no result lines", flush=True)
+        sys.exit(3)
+    if args.shard_only or args.ranks_only:
+        sh = kernel_checks(dev, frames[len(frames) // 2], card)
+        k6, _ = counted_run("g6 replay", cfg6, frames, dev, "vote_state")
+        with tempfile.TemporaryDirectory(prefix="pcs_chip_smoke_") as tmp:
+            if args.ranks_only:
+                shard_phase(cfg6, cfg4, frames, k6, dev, card, sh)
+            else:
+                shard_stack(cfg6, cfg4, frames, k6, dev, card, tmp, sh)
+        print(json.dumps({"shapes": [r for r in sh.times if "shard" in r["shape"]]}),
+              flush=True)
         print("one stack only: no result lines", flush=True)
         sys.exit(3)
 
@@ -1461,26 +1859,6 @@ def main() -> None:
               f"{ms_per_frame(kr):.3f}{extra}, plain {ms_per_frame(pr):.3f} [{card}]",
               flush=True)
 
-    sources = {"vote_state": "tools/exp_g6_pallas.py:156",
-               "vote_histogram": "pointcloud_segmentation_tpu/ops/voting_pallas.py:49"}
-    main_shape = {"vote_state": "the full g6 table", "vote_histogram": "g4"}
-    launches = {"vote_state": n_state, "vote_histogram": n_hist}
-    kernels = []
-    for name in ("vote_state", "vote_histogram"):
-        shapes = [r for r in sh.times if r["name"] == name]
-        head = next(r for r in shapes if r["shape"] == main_shape[name] and r["nx"] == 79)
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "pointcloud_segmentation_tpu_torch/csrc/voting.cu",
-            "replaces": sources[name], "launches": launches[name],
-            "max_abs_err": sh.errs[name], "ms": head["ms"], "plain_ms": head["plain_ms"],
-            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head["library_ms"],
-            "shapes": [{k: r[k] for k in ("shape", "rows", "n", "active", "nx", "ms",
-                                          "plain_ms", "library_ms", "bound_ms", "bound_by",
-                                          "earlier_ms")}
-                       for r in shapes]})
-
     # the live node loop at the shipped config, on the default device
     with tempfile.TemporaryDirectory(prefix="pcs_chip_smoke_") as tmp:
         log = lockstep_stream(cfg6, frames, k6, tmp, card)
@@ -1490,6 +1868,34 @@ def main() -> None:
         checkpoint_phase(cfg6, frames, k6, tmp)
         sensor_stack(cfg6, cfg4, frames, k6, dev, card, tmp)
         parity_stack(cfg6, cfg4, frames, k6, dev, card, tmp)
+        shard_stack(cfg6, cfg4, frames, k6, dev, card, tmp, sh, log)
+
+    sources = {"vote_state": "tools/exp_g6_pallas.py:156",
+               "vote_histogram": "pointcloud_segmentation_tpu/ops/voting_pallas.py:49"}
+    main_shape = {"vote_state": "the full g6 table", "vote_histogram": "g4"}
+    launches = {"vote_state": n_state, "vote_histogram": n_hist}
+    # each timed shape's launches: on its replay of the main path, or (set by
+    # shard_phase) on rank 0 of its sharded replay
+    paths = {("vote_state", 79): k6["shapes"], ("vote_state", 261): k6s["shapes"],
+             ("vote_histogram", 79): k4["shapes"]}
+    kernels = []
+    for name in ("vote_state", "vote_histogram"):
+        shapes = [r for r in sh.times if r["name"] == name]
+        for r in shapes:
+            key = (r["rows"], r["n"] if r["n"] > 512 else "<= 512")
+            r.setdefault("launches", paths.get((name, r["nx"]), {}).get(key, 0))
+        head = next(r for r in shapes if r["shape"] == main_shape[name] and r["nx"] == 79)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "pointcloud_segmentation_tpu_torch/csrc/voting.cu",
+            "replaces": sources[name], "launches": launches[name],
+            "max_abs_err": sh.errs[name], "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "shapes": [{k: r[k] for k in ("shape", "rows", "n", "active", "nx", "launches",
+                                          "ms", "plain_ms", "library_ms", "bound_ms",
+                                          "bound_by", "earlier_ms")}
+                       for r in shapes]})
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -211,6 +211,7 @@ def cmd_stream(args) -> int:
     eng = SegmentationEngine(
         cfg, device=args.device, backend=args.backend, viz_stream=args.viz_stream,
         viz_points=args.viz_points or args.viz_world_points,
+        viz_every_frame=args.viz_every_frame,
         collect_inlier_points=args.viz_world_points)
     stats = eng.run_streaming_from_log(args.log, rate_hz=args.rate,
                                        loops=args.loops)
@@ -234,7 +235,8 @@ def cmd_serve(args) -> int:
 
     cfg = _build_cfg(args)
     eng = SegmentationEngine(cfg, device=args.device, backend=args.backend,
-                             viz_stream=args.viz_stream)
+                             viz_stream=args.viz_stream,
+                             viz_every_frame=args.viz_every_frame)
     srv = SegmentationServer(eng, host=args.host, port=args.port,
                              outdir=args.out or cfg.path_to_output)
     print(f"serving on {srv.host}:{srv.port}", flush=True)
@@ -496,8 +498,13 @@ def main(argv=None) -> int:
                     help="feed rate in Hz (0 = as fast as possible)")
     ps.add_argument("--loops", type=int, default=1)
     ps.add_argument("--viz-stream", default=None, metavar="JSONL",
-                    help="per-frame marker stream, one record per processed "
-                         "frame (watch with `pcs-torch viz <JSONL> --follow`)")
+                    help="marker stream, one record per read-back batch of "
+                         "the deferred stream (watch with `pcs-torch viz "
+                         "<JSONL> --follow`)")
+    ps.add_argument("--viz-every-frame", action="store_true",
+                    help="one viz record per processed frame instead of per "
+                         "read-back batch (the synchronous per-frame path); "
+                         "--viz-points implies it")
     _add_viz_points(ps)
     ps.set_defaults(fn=cmd_stream)
 
@@ -510,7 +517,10 @@ def main(argv=None) -> int:
     px.add_argument("--viz-stream", default=None, metavar="JSONL",
                     help="also write the per-frame marker stream; pair with "
                          "`pcs-torch viz <JSONL> --follow` in another terminal "
-                         "to watch the served stream live")
+                         "to watch the served stream live (one record per "
+                         "read-back batch; --viz-every-frame for one per frame)")
+    px.add_argument("--viz-every-frame", action="store_true",
+                    help="see `stream --viz-every-frame`")
     px.set_defaults(fn=cmd_serve)
 
     pe = sub.add_parser("eval", help="ground-truth accuracy of a segments.csv")

@@ -57,15 +57,18 @@ def world_state_to_numpy(state: WorldState) -> dict:
 
 def _common_payload(backend: str, frames_processed: int, records: list,
                     world_overflow_frames: int) -> dict:
+    # A deferred stream dispatches ahead of its read-backs: records that
+    # still carry the -1 sentinel are counted, not written (the world map
+    # ahead of them is saved all the same; it is the device's truth)
+    done = [r for r in records if r["seg_vec_size"] >= 0]
     return {
         "backend": np.array(backend),
         "world_overflow_frames": np.array(world_overflow_frames),
         "frames_processed": np.array(frames_processed),
-        # the port reads every record's values before it keeps the record
-        "records_pending": np.array(0),
+        "records_pending": np.array(len(records) - len(done)),
         "records": np.array(
             [[r["wall_time"], r["processing_time"], r["seg_vec_size"],
-              r["nblines"]] for r in records], dtype=np.float64).reshape(-1, 4),
+              r["nblines"]] for r in done], dtype=np.float64).reshape(-1, 4),
     }
 
 

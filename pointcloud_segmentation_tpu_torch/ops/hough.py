@@ -12,6 +12,14 @@ JAX's ``lax.while_loop``/``switch`` become a host loop.  Each round reads one
 scalar (the update branch, which also decides whether the loop goes on) and,
 in a lazy incremental round, the suspect count that picks the re-exam tier.
 
+With an `AxisGroup` over the direction axis (the counterpart of the JAX
+``dir_axis``) the direction table is one rank's contiguous slice of the
+sphere and the cloud is replicated: each round gathers every rank's winner and its table rows in one
+``all_gather`` of a few int32 words, and a lazy incremental round gathers the
+ranks' best counts once more for the suspect bound.  Everything after the
+winner is computed from replicated tensors, so every rank takes the same
+branches and makes the same collectives.
+
 The float type follows the points': float32, or float64 in the parity mode
 (``compute_dtype="float64"``).  In both, the stages that are float32 by spec
 stay float32, as in the numpy oracle: the vote bins (the plane bases c1/c2,
@@ -26,6 +34,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from ..config import PipelineConfig
 from ..geometry import canonicalize_direction
@@ -72,6 +81,64 @@ class HoughResult(NamedTuple):
     segments: SegmentBatch
     nlines: torch.Tensor       # int32 — nblines_extracted (0 on frame abort)
     status: torch.Tensor       # int32: 0 ok, 1 degenerate, 2 dx>=d, 3 b.x==0
+
+
+def pick_winner(gathered: torch.Tensor) -> torch.Tensor:
+    """The winning rank's row of (ranks, K) int32 rows ``[M, b, cell, ...]``:
+    the largest vote count M, and among the ranks at it the smallest global
+    direction index b, as the oracle's flat argmax breaks ties (the ranks'
+    direction ranges are disjoint, so that rank is unique and its cell is
+    already its direction's smallest).  Twin of the JAX package's
+    `_global_argmax_winner`; like it, this never forms ``b * cells + cell``,
+    which overflows int32 once directions times cells pass 2^31 (granularity
+    6 with a radius near 0.012)."""
+    M_all, b_all = gathered[:, 0], gathered[:, 1]
+    bkey = torch.where(M_all == M_all.max(), b_all, torch.iinfo(torch.int32).max)
+    return _row(gathered, _first_true(bkey == bkey.min()))
+
+
+class AxisGroup:
+    """One rank's place on one axis of a mesh: the axis's process group, the
+    rank in it and the group's size.  On the direction axis it is the `shard`
+    that `extract_lines` takes, and every collective of the sharded
+    extraction is this class's `all_gather`; on the batch axis it gathers the
+    frames' segments (parallel/sharding.py).
+
+    via_host: the group's backend moves CPU tensors only (gloo, which ranks
+    sharing one card use, since NCCL refuses two ranks on one GPU): the few
+    words of a gather are copied to the host, gathered there and copied back.
+    The group's timeout (set where it is made, parallel.make_mesh) bounds
+    every call, so ranks that disagree fail instead of waiting for ever."""
+
+    def __init__(self, group, rank: int, size: int, via_host: bool = False):
+        self.group, self.rank, self.size, self.via_host = group, rank, size, via_host
+        self.collectives = 0      # gathers made so far
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """(K,) on every rank -> (size, K), rank r's words in row r."""
+        self.collectives += 1
+        src = t.cpu() if self.via_host else t.contiguous()
+        parts = [torch.empty_like(src) for _ in range(self.size)]
+        dist.all_gather(parts, src, group=self.group)
+        return torch.stack(parts).to(t.device)
+
+    def winner(self, M, b_global, cell, b0, c1row, c2row):
+        """The global winner's (cell, direction, c1 row, c2 row) from each
+        rank's own.  The rows travel as their bit patterns, so a -0.0 stays
+        -0.0 (a masked float sum would make it +0.0) and n ranks give one
+        rank's bits."""
+        nb = b0.view(torch.int32).numel()        # 3 words, 6 in float64
+        words = torch.cat([
+            torch.stack([M, b_global, cell]).to(torch.int32),
+            b0.view(torch.int32), c1row.view(torch.int32), c2row.view(torch.int32)])
+        row = pick_winner(self.all_gather(words))
+        return (row[2], row[3:3 + nb].clone().view(b0.dtype),
+                row[3 + nb:6 + nb].clone().view(torch.float32),
+                row[6 + nb:9 + nb].clone().view(torch.float32))
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        """The maximum over the ranks of a 0-dim tensor."""
+        return self.all_gather(t.reshape(1)).max()
 
 
 def empty_segments(L: int, N: int, dtype=torch.float32, device=None) -> SegmentBatch:
@@ -216,7 +283,8 @@ def vote_inputs(Xs, half, dx):
 
 def extract_lines(points: torch.Tensor, valid: torch.Tensor,
                   cfg: PipelineConfig, dir_tables: tuple | None = None,
-                  voting: Voting = KERNELS) -> HoughResult:
+                  voting: Voting = KERNELS,
+                  shard: AxisGroup | None = None) -> HoughResult:
     """Run the iterative Hough extraction on one pre-filtered cloud.
 
     Args:
@@ -228,12 +296,18 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
         `direction_tables(granularity, device, points.dtype)` gives them;
         built from the config when None.
       voting: the voting functions, KERNELS (default) or PLAIN.
+      shard: None for one rank.  Else `dir_tables` is this rank's slice of
+        the table (every rank's of one length, as parallel/sharding.py cuts it),
+        `points` and `valid` are the same on every rank, and every rank of
+        the shard's group makes this call together.
     """
     dev = points.device
     N = points.shape[0]
     L = cfg.max_lines
     dt = points.dtype
     if dir_tables is None:
+        if shard is not None:
+            raise ValueError("a sharded extraction needs its rank's dir_tables")
         dir_tables = direction_tables(cfg.granularity, dev, dt)
     if dir_tables[0].dtype != dt:
         # a float64 run must not take its directions through float32
@@ -243,6 +317,8 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
         raise ValueError("the plane bases c1 and c2 must be float32")
     dirs, c1, c2 = _pad_dirs_to_tile(*dir_tables)
     B = dirs.shape[0]
+    # global index of this rank's first direction, after tile padding
+    dir_offset = shard.rank * B if shard is not None else 0
     NX = cfg.num_x_max
     cells = NX * NX
 
@@ -278,17 +354,18 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
         return v0, v0.amax(dim=(1, 2))
 
     def vstate_winner(vs):
-        """(b_win, cell_win) of the global max; the first max is the
+        """(M, b_win, cell_win) of this rank's max; the first max is the
         smallest (b, xi, yi), as the oracle's flat argmax."""
         if lazy:
             best, key, _ = vs
-            b_win = _first_true(best == best.max())
-            return b_win, _row(key, b_win)
+            M = best.max()
+            b_win = _first_true(best == M)
+            return M, b_win, _row(key, b_win)
         votes, row_max = vs
         M = row_max.max()
         b_win = _first_true(row_max == M)
         cell_win = _first_true(_row(votes, b_win).reshape(cells) == M)
-        return b_win, cell_win
+        return M, b_win, cell_win
 
     def exam(vs, suspect, cap, active_next):
         """Recompute (best, key, ub) of <= cap suspect directions."""
@@ -313,7 +390,10 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
             best, key, ub = vs
             keys_r = _removed_cell_keys(Xv, c1, c2, half32, dx32, num_x, m2, n_rem, NX)
             best = best - (keys_r == key[:, None]).sum(dim=1, dtype=torch.int32)
-            suspect = ub >= best.max()           # other cells could win
+            M_lb = best.max()
+            if shard is not None:
+                M_lb = shard.max(M_lb)
+            suspect = ub >= M_lb                 # other cells could win
             n_sus = int(suspect.sum())           # host read: picks the tier
             if n_sus <= s_tier:
                 return exam((best, key, ub), suspect, s_tier, active_next)
@@ -339,12 +419,15 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
     vstate = vstate_init(active) if go else None
     it = 0
     while go:
-        b_win, cell_win = vstate_winner(vstate)
+        M, b_win, cell_win = vstate_winner(vstate)
+        b0, c1row, c2row = _row(dirs, b_win), _row(c1, b_win), _row(c2, b_win)
+        if shard is not None:
+            cell_win, b0, c1row, c2row = shard.winner(
+                M, b_win + dir_offset, cell_win, b0, c1row, c2row)
         xi = (cell_win // NX).to(torch.float32)
         yi = (cell_win % NX).to(torch.float32)
         xc = (xi + 0.5) * dx32 - half32
         yc = (yi + 0.5) * dx32 - half32
-        b0, c1row, c2row = _row(dirs, b_win), _row(c1, b_win), _row(c2, b_win)
         a0 = (xc * c1row + yc * c2row).to(dt)
 
         # refinement #1: the direction is renormalised first, as the oracle's

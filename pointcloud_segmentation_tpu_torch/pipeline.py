@@ -13,7 +13,7 @@ import torch
 
 from .config import PipelineConfig
 from .geometry import quat_to_rot
-from .ops.hough import KERNELS, SegmentBatch, Voting, extract_lines
+from .ops.hough import KERNELS, AxisGroup, SegmentBatch, Voting, extract_lines
 from .ops.preproc import preprocess
 from .worldmap import WorldState, init_world, world_step
 
@@ -77,13 +77,16 @@ def compute_dtype(cfg: PipelineConfig) -> torch.dtype:
 
 def frame_segments(raw_points: torch.Tensor, position: torch.Tensor,
                    quat_wxyz: torch.Tensor, cfg: PipelineConfig,
-                   dir_tables: tuple | None = None, voting: Voting = KERNELS):
+                   dir_tables: tuple | None = None, voting: Voting = KERNELS,
+                   shard: AxisGroup | None = None):
     """The per-frame stages, which touch no world state: filter -> Hough ->
     drone-to-world transform -> floor cutoff.  Returns (filtered, fvalid,
-    fcount, hough result, world-frame segments)."""
+    fcount, hough result, world-frame segments).  With a `shard`, `dir_tables`
+    is this rank's slice of the direction table and every rank of the
+    shard's group calls with the same frame (ops/hough.py)."""
     raw_points = raw_points.to(compute_dtype(cfg))
     filtered, fvalid, fcount = preprocess(raw_points, cfg)
-    hough = extract_lines(filtered, fvalid, cfg, dir_tables, voting)
+    hough = extract_lines(filtered, fvalid, cfg, dir_tables, voting, shard)
 
     frame_segs = hough.segments
     if cfg.surface_offset_correction:
@@ -96,11 +99,12 @@ def frame_segments(raw_points: torch.Tensor, position: torch.Tensor,
 def process_frame(state: WorldState, raw_points: torch.Tensor,
                   position: torch.Tensor, quat_wxyz: torch.Tensor,
                   cfg: PipelineConfig, dir_tables: tuple | None = None,
-                  voting: Voting = KERNELS) -> tuple[WorldState, FrameOutput]:
+                  voting: Voting = KERNELS,
+                  shard: AxisGroup | None = None) -> tuple[WorldState, FrameOutput]:
     """One full frame.  raw_points: (N_raw, 3), NaN = invalid return, cast to
     the config's compute_dtype; every tensor on the world state's device."""
     filtered, fvalid, fcount, hough, segs = frame_segments(
-        raw_points, position, quat_wxyz, cfg, dir_tables, voting)
+        raw_points, position, quat_wxyz, cfg, dir_tables, voting, shard)
 
     state, slots = world_step(state, segs, cfg)
 
@@ -115,13 +119,13 @@ def process_frame(state: WorldState, raw_points: torch.Tensor,
 def process_frame_packed(state: WorldState, raw_points: torch.Tensor,
                          position: torch.Tensor, quat_wxyz: torch.Tensor,
                          cfg: PipelineConfig, dir_tables: tuple | None = None,
-                         voting: Voting = KERNELS):
+                         voting: Voting = KERNELS, shard: AxisGroup | None = None):
     """`process_frame`, also returning the frame's host-bound scalars
     (world_count, nlines, status, overflow) as one (4,) int32 tensor, so the
     runtime reads the host once per frame.  Twin of the JAX package's
     `make_process_frame_packed`."""
     state, out = process_frame(state, raw_points, position, quat_wxyz, cfg,
-                               dir_tables, voting)
+                               dir_tables, voting, shard)
     scalars = torch.stack([out.world_count, out.nlines, out.status, out.overflow])
     return state, out, scalars
 
@@ -129,7 +133,7 @@ def process_frame_packed(state: WorldState, raw_points: torch.Tensor,
 def batched_process(state: WorldState, clouds: torch.Tensor,
                     positions: torch.Tensor, quats: torch.Tensor,
                     cfg: PipelineConfig, dir_tables: tuple | None = None,
-                    voting: Voting = KERNELS):
+                    voting: Voting = KERNELS, shard: AxisGroup | None = None):
     """A chunk of F frames in one call: the per-frame stages for each frame,
     then the order-dependent world fusion (node.cpp:491-510) in frame order.
     Twin of the JAX package's `make_batched_process`, which vmaps the
@@ -146,7 +150,7 @@ def batched_process(state: WorldState, clouds: torch.Tensor,
     all int32 on the state's device.
     """
     per_frame = [frame_segments(clouds[i], positions[i], quats[i], cfg,
-                                dir_tables, voting)
+                                dir_tables, voting, shard)
                  for i in range(clouds.shape[0])]
     nlines, statuses, counts, overflows = [], [], [], []
     for _, _, _, hough, segs in per_frame:

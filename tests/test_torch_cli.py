@@ -145,8 +145,11 @@ def test_cli_stream_accounts_for_every_frame(tmp_path):
     for name, header in HEADERS.items():
         with open(os.path.join(out, name)) as f:
             assert f.readline().strip() == header
+    # a plain --viz-stream on a stream: one record a read-back batch
     with open(viz) as f:
-        assert len(f.read().splitlines()) == processed
+        recs = [json.loads(ln) for ln in f.read().splitlines()]
+    assert recs and all(r["viz_cadence"] == "flush" for r in recs)
+    assert sum(r["frames_in_batch"] for r in recs) == processed
 
 
 @pytest.mark.parametrize("command", ["run", "stream"])

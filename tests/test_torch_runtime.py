@@ -94,7 +94,10 @@ def no_sentinels(records):
 
 def test_lockstep_stream_equals_the_replay_and_the_jax_engine(frames, sync, jax_sync):
     viz = []
-    eng = SegmentationEngine(CFG, device="cpu", viz_stream=viz.append)
+    # one viz record a frame: the default, one a flush, is held by
+    # tests/test_torch_deferred.py
+    eng = SegmentationEngine(CFG, device="cpu", viz_stream=viz.append, viz_every_frame=True)
+    assert not eng._stream_deferred
     eng.start()
     try:
         lockstep(eng, frames)
@@ -199,7 +202,9 @@ def test_a_lost_frame_fails_the_drain_and_the_accounting(frames):
     """A frame the worker takes and never accounts for is not hidden among the
     drops: drain times out and the counters fall short of the submits."""
     eng = SegmentationEngine(CFG, device="cpu")
-    eng.process_frame = lambda t, points: None      # takes the frame, counts nothing
+    # takes the frame, counts nothing (the deferred worker's entry and the
+    # synchronous one)
+    eng.process_frame = eng._process_frame_deferred = lambda t, points: None
     eng.push_pose(frames[0].t, frames[0].position, frames[0].quat_wxyz)
     eng.start()
     try:
@@ -265,7 +270,7 @@ def test_frame_without_a_pose_is_skipped(frames):
 
 def test_restart_after_stop_continues_counts_and_viz(frames, tmp_path):
     viz = tmp_path / "viz.jsonl"
-    eng = SegmentationEngine(CFG, device="cpu", viz_stream=str(viz))
+    eng = SegmentationEngine(CFG, device="cpu", viz_stream=str(viz), viz_every_frame=True)
     for fr in frames[:2]:
         eng.push_pose(fr.t, fr.position, fr.quat_wxyz)
         eng.submit_cloud(fr.t, fr.points)      # before start: the first drops
