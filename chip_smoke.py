@@ -40,7 +40,11 @@ byte-equal to the Python ones; the paced streams through the C++ feeder, then
 an A/B at 30 Hz of the C++ feeder against the Python one, three runs each in
 turns; and a 90 s endurance stream of tools/endurance_torch.py at g6 and 30 Hz,
 held to exact accounting and a flat memory floor.  The soak includes one
-seed of 128x128 frames.
+seed of 128x128 frames, and every base-mode seed (float32 and float64) that
+the JAX soak's SOAK.json lists as divergent, compared with that record seed
+for seed; the seeds divergent in SOAK_torch.json's card batches (g6 aside)
+are traced frame by frame, each b.x the Hough loop refines beside the
+oracle's, those divergent on the card alone in float64 too.
 
     python3 chip_smoke.py [--earlier path/to/an/earlier/voting.cu]
                           [--parity-only | --sensor-only | --shard-only |
@@ -1471,6 +1475,69 @@ def load_soak():
     return mod
 
 
+def jax_divergent_seeds(soak) -> int:
+    """The base-mode seeds (float32 and float64) that SOAK.json, the JAX
+    soak's record, lists as divergent, on the card, each compared with that
+    record: no seed unexplained.  The card's set need not equal the JAX one,
+    since eigensolver noise decides the knife edge.  Returns the seeds run."""
+    record = soak.load_jax_soak()
+    sets = collections.defaultdict(list)
+    n = 0
+    for b in record["batches"]:
+        if b["mode"] != "base":
+            continue
+        for d in b["diverging"]:
+            batch = soak.run_batch(1, d["seed"], "base", b["f64"], "cuda")
+            cmp = soak.compare_with_jax(batch, record)
+            for key in ("both", "only_port", "only_jax", "class_differs", "unexplained"):
+                sets[key] += [(x if key == "unexplained" else x["seed"]) for x in cmp[key]]
+            n += 1
+    print("soak against SOAK.json: " + json.dumps({k: sets[k] for k in (
+        "both", "only_port", "only_jax", "class_differs", "unexplained")}), flush=True)
+    check(n > 0 and not sets["unexplained"],
+          f"soak: the JAX soak's {n} divergent base seeds on cuda, {len(sets['both'])} "
+          f"divergent here too, 0 unexplained")
+    return n
+
+
+def knife_edge_witness(soak) -> int:
+    """Every seed that SOAK_torch.json's card batches hold divergent, g6 ones
+    aside (the host oracle takes ~24 s a g6 seed), traced on the card frame
+    by frame; those divergent on one side only or under another class than
+    SOAK.json's also in the float64 parity mode.  Each trace's worlds agree,
+    or every frame where the oracle and the port part starts at a
+    refinement whose b.x is exactly 0.0 on one side and rounding noise on
+    the other.  Returns the traces run."""
+    with open(soak.ARTIFACT) as f:
+        batches = json.load(f)["batches"]
+    seeds = {}
+    for b in batches:
+        if b["device"] != "cuda" or "jax_soak" not in b or b["mode"] == "g6":
+            continue
+        for d in b["diverging"]:
+            seeds.setdefault((d["seed"], b["mode"], b["f64"]), False)
+        for key in ("only_port", "only_jax", "class_differs"):
+            for d in b["jax_soak"][key]:
+                seeds[(d["seed"], b["mode"], b["f64"])] = True
+    n, worst = 0, 0.0
+    for (seed, mode, f64), one_sided in sorted(seeds.items()):
+        for f64_run in sorted({f64, f64 or one_sided}):
+            tr = soak.knife_edge_trace(seed, mode, f64_run, "cuda")
+            flips = [(v["frame"], v["round"], float(f"{v['other_bx']:.3g}"))
+                     for v in soak.knife_edge_frames(tr) if v["verdict"] == "knife-edge"]
+            what = f"knife edge: seed {seed} ({mode}, {'float64' if f64_run else 'float32'}) on cuda"
+            print(f"{what}: statuses oracle {tr['oracle']['status']} port "
+                  f"{tr['torch']['status']}; world errors {tr['errors'] or 'none'}; "
+                  f"flips (frame, round, |b.x| on the other side) {flips}", flush=True)
+            check(soak.knife_edge_explained(tr),
+                  f"{what}: {'worlds agree' if not tr['errors'] else 'every part is a flip'}")
+            worst = max([worst] + [x for _, _, x in flips])
+            n += 1
+    check(n >= len(seeds) > 0, f"knife edge: {n} traces of {len(seeds)} divergent seeds on "
+                               f"cuda, other side's |b.x| at most {worst:.3g} at a flip")
+    return n
+
+
 def soak_phase(card):
     """Fixed seeds of tools/parity_soak_torch.py on the card: the oracle
     against the torch backend, no unexplained divergence."""
@@ -1499,11 +1566,13 @@ def soak_phase(card):
         n += k
     check(counts.get("real", 0) == 0,
           f"soak: {n} seeds on cuda, 0 unexplained; diverging by class {dict(counts)}")
+    n += jax_divergent_seeds(soak)
+    n_traced = knife_edge_witness(soak)
     check(V.vote_state.launches > 0 and V.vote_histogram.launches > 0,
           f"soak: launched vote_state {V.vote_state.launches} and vote_histogram "
           f"{V.vote_histogram.launches} times")
-    print(f"time  soak, {n} seeds, both backends: {time.perf_counter() - t0:.1f} s "
-          f"[{card}]", flush=True)
+    print(f"time  soak, {n} seeds and {n_traced} knife-edge traces, both backends: "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
 
 def oracle_backend_phase(ref, tmp):

@@ -364,25 +364,43 @@ def test_engine_deferred_restart_after_stop(frames, sync):
 def test_engine_deferred_overfeed_bounded_inflight(frames):
     """An overfed stream does not run ahead of its read-backs without bound:
     with `_STREAM_MAX_UNREAD_BATCHES` batches unread the worker waits for the
-    flusher.  A slowed backfill pushes the queue to the cap."""
+    flusher.  The first backfill is held until the worker has queued batches
+    up to the cap, however long a frame takes, and then for a few frames'
+    time more, in which a worker that did not wait would pass the cap."""
     eng = SegmentationEngine(CFG, device="cpu", stream_sync_every=2)
     assert eng._stream_deferred
+    cap = eng._STREAM_MAX_UNREAD_BATCHES
     seen = {"max_q": 0, "max_ahead": 0}
+    held = threading.Event()
     orig = eng._backfill_batch
 
-    def slow_backfill(batch):
+    def sample():
         seen["max_q"] = max(seen["max_q"], eng._flush_q.qsize())
         unread = sum(r["seg_vec_size"] < 0 for r in list(eng.records))
         seen["max_ahead"] = max(seen["max_ahead"], unread)
-        time.sleep(0.3)
+
+    def slow_backfill(batch):
+        if not held.is_set():
+            t0 = time.time()
+            while eng._flush_q.qsize() < cap and time.time() < t0 + 30.0:
+                time.sleep(0.005)
+            # four batches' time at the pace seen so far, at least 0.5 s
+            frame_s = (time.time() - t_start) / max(eng.frames_processed, 1)
+            t_hold = time.time() + min(max(0.5, 4 * eng.stream_sync_every * frame_s), 10.0)
+            while time.time() < t_hold and eng._flush_q.qsize() <= cap:
+                sample()
+                time.sleep(0.005)
+            held.set()
+        sample()
         return orig(batch)
 
     eng._backfill_batch = slow_backfill
+    t_start = time.time()
     eng.start()
     for fr in frames:
         eng.push_pose(fr.t, fr.position, fr.quat_wxyz)
     t_end, i = time.time() + 4.0, 0
-    while time.time() < t_end:
+    while time.time() < t_end or (not held.is_set() and time.time() < t_end + 45.0):
         fr = frames[i % len(frames)]
         eng.submit_cloud(fr.t, fr.points)
         i += 1
@@ -391,7 +409,6 @@ def test_engine_deferred_overfeed_bounded_inflight(frames):
     while eng._flush_q.qsize() > 0 and time.time() < deadline:
         time.sleep(0.05)
     eng.stop()
-    cap = eng._STREAM_MAX_UNREAD_BATCHES
     # a batch was still queued when a backfill began, and never more than
     # the cap (qsize is sampled after the flusher has taken its batch)
     assert 1 <= seen["max_q"] <= cap

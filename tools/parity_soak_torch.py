@@ -25,9 +25,22 @@ Coverage modes (mutually exclusive flags; default draws granularity 1-3 on a
     --sensor128  128x128 ToF frames (16,384 rays)
     --f64        run the port in its float64 parity mode
 
-Results are appended to SOAK_torch.json at the repo's root (``--no-artifact``
-skips that), in the layout of the JAX soak's SOAK.json, which this tool never
-touches.
+Results are appended to SOAK_torch.json at the repo's root (``--artifact``
+names another file, ``--no-artifact`` skips it), in the layout of the JAX
+soak's SOAK.json, which this tool only ever reads.
+
+Against the JAX soak's record, seed for seed:
+
+    python tools/parity_soak_torch.py 30 5000 --device cpu --against-jax
+    python tools/parity_soak_torch.py --jax-batches --g6 --device cuda
+
+``--against-jax`` stores `compare_with_jax`'s sets (seeds divergent on both
+sides, on one side only, under different classes) as the batch's
+``"jax_soak"`` field; the seeds must lie in SOAK.json's batches of the same
+mode.  ``--jax-batches`` runs SOAK.json's batches in turn (each one's mode,
+f64, first seed and count) with ``--against-jax``: every batch, or with
+``--g6``, ``--sensor128`` or ``--f64`` only the batches of that mode or of
+the float64 parity mode, so that modes can run as parallel processes.
 
 Mismatches are CLASSIFIED, into the two classes the JAX soak documents; any
 other is ``real``, is reported with its seed and fails the soak:
@@ -58,6 +71,13 @@ if ROOT not in sys.path:
 
 STATUS_BX_ZERO = 3
 ARTIFACT = os.path.join(ROOT, "SOAK_torch.json")
+JAX_SOAK = os.path.join(ROOT, "SOAK.json")
+# the classes of a divergence that the soak documents; any other is a fault
+DOCUMENTED = ("bx-knife-edge", "f32-gate-boundary")
+# a refined direction with |b.x| below this lies in the y-z plane to within
+# the rounding of float32 input coordinates: whether b.x comes out as exactly
+# 0.0 there is eigensolver noise
+BX_NOISE = 1e-6
 
 
 def random_cfg(rng, mode: str = "base", f64: bool = False):
@@ -197,6 +217,76 @@ def run_pair(seed: int, mode: str = "base", f64: bool = False,
     return errs, klass
 
 
+def knife_edge_trace(seed: int, mode: str = "base", f64: bool = False,
+                     device: str = "cuda") -> dict:
+    """One seed on both backends, frame by frame.  For each backend: every
+    frame's status and line count, and the b.x of every direction its Hough
+    loop refined, in order (the value the reference aborts on when it is
+    exactly 0.0), read by tapping the backend's canonicalize_direction for
+    the run.  ``errors`` is `compare_worlds` of the two world maps."""
+    from pointcloud_segmentation_tpu_torch.ops import hough
+    from pointcloud_segmentation_tpu_torch.oracle import _geometry
+    from pointcloud_segmentation_tpu_torch.runtime import SegmentationEngine
+
+    cfg, frames = random_case(seed, mode, f64)
+    out = {}
+    for backend, mod in (("oracle", _geometry), ("torch", hough)):
+        orig, bx = mod.canonicalize_direction, []
+
+        def tap(b, *a, _orig=orig, _bx=bx, **k):
+            b = _orig(b, *a, **k)
+            _bx[-1].append(float(b[0]))
+            return b
+
+        mod.canonicalize_direction = tap
+        try:
+            eng = SegmentationEngine(cfg, backend=backend, device=device)
+            recs = []
+            for fr in frames:
+                bx.append([])
+                eng.push_pose(fr.t, fr.position, fr.quat_wxyz)
+                recs.append(eng.process_frame(fr.t, fr.points))
+        finally:
+            mod.canonicalize_direction = orig
+        out[backend] = {"status": [r["status"] for r in recs],
+                        "nblines": [r["nblines"] for r in recs],
+                        "bx": bx, "world": eng.world_snapshot()}
+    out["errors"] = compare_worlds(out["oracle"]["world"], out["torch"]["world"])
+    return out
+
+
+def knife_edge_frames(trace: dict) -> list:
+    """Each frame of a `knife_edge_trace`, judged: ``same`` when no refined
+    direction's b.x is 0.0 on one side only and status and line count agree;
+    ``knife-edge`` when the first refinement with b.x == 0.0 on one side only
+    has |b.x| < BX_NOISE on the other, a direction that differs from one
+    with b.x == 0.0 by rounding alone; ``unexplained`` otherwise."""
+    o, t = trace["oracle"], trace["torch"]
+    out = []
+    for i, (bo, bt) in enumerate(zip(o["bx"], t["bx"])):
+        flip = next((k for k, (x, y) in enumerate(zip(bo, bt))
+                     if (x == 0.0) != (y == 0.0)), None)
+        v = {"frame": i, "status": [o["status"][i], t["status"][i]]}
+        if flip is not None:
+            other = max(abs(bo[flip]), abs(bt[flip]))
+            v.update(verdict="knife-edge" if other < BX_NOISE else "unexplained",
+                     round=flip, other_bx=other)
+        elif o["status"][i] == t["status"][i] and o["nblines"][i] == t["nblines"][i]:
+            v.update(verdict="same")
+        else:
+            v.update(verdict="unexplained")
+        out.append(v)
+    return out
+
+
+def knife_edge_explained(trace: dict) -> bool:
+    """The seed's worlds agree, or their divergence has its witness: no
+    frame unexplained and at least one frame on the knife edge."""
+    verdicts = [v["verdict"] for v in knife_edge_frames(trace)]
+    return not trace["errors"] or ("unexplained" not in verdicts
+                                   and "knife-edge" in verdicts)
+
+
 def classify(seed: int, mode: str, f64: bool, device: str, verify: bool) -> tuple:
     """run_pair with the f32-gate-boundary suspects verified: (errors, class,
     f64_matches_oracle or None).  A crash on either backend is a finding."""
@@ -284,12 +374,98 @@ def run_batch(n: int, s0: int, mode: str = "base", f64: bool = False,
     }
 
 
+def load_jax_soak() -> dict:
+    """The JAX soak's record, `JAX_SOAK`, read as JSON, never written."""
+    with open(JAX_SOAK) as f:
+        return json.load(f)
+
+
+def jax_batches_for(mode: str, f64: bool, s0: int, n: int, jax_soak: dict) -> list:
+    """The JAX soak's batches of `mode` and `f64` that hold seeds s0 ..
+    s0+n-1, in seed order.  Raises ValueError when one of those seeds is in
+    none of them: there is nothing to compare it with."""
+    left = set(range(s0, s0 + n))
+    found = []
+    for b in sorted(jax_soak.get("batches", []), key=lambda b: b["seed_start"]):
+        if b["mode"] != mode or bool(b["f64"]) != bool(f64):
+            continue
+        held = left & set(range(b["seed_start"], b["seed_start"] + b["n"]))
+        if held:
+            found.append(b)
+            left -= held
+    if left:
+        raise ValueError(f"SOAK.json holds no {mode} batch (f64={f64}) with seeds "
+                         f"{sorted(left)}")
+    return found
+
+
+def compare_with_jax(batch: dict, jax_soak: dict) -> dict:
+    """A soak batch of this tool beside the JAX soak's record of the same
+    seeds, mode and f64: ``both`` lists the seeds divergent on both sides
+    with each side's class, ``only_port`` and ``only_jax`` those divergent on
+    one side, ``class_differs`` those of ``both`` whose classes differ.  A
+    seed is ``unexplained`` when a divergent side's class is not one the
+    soak documents: a port class of ``real`` is always so.  A seed
+    divergent in the JAX soak alone is explained by the JAX class, since the
+    port matched the oracle there."""
+    s0, n = batch["seed_start"], batch["n"]
+    jbs = jax_batches_for(batch["mode"], batch["f64"], s0, n, jax_soak)
+    seeds = range(s0, s0 + n)
+    jax = {d["seed"]: d["class"] for b in jbs for d in b["diverging"] if d["seed"] in seeds}
+    port = {d["seed"]: d["class"] for d in batch["diverging"]}
+    both = [{"seed": s, "port": port[s], "jax": jax[s]}
+            for s in sorted(port.keys() & jax.keys())]
+    only_port = [{"seed": s, "port": port[s]} for s in sorted(port.keys() - jax.keys())]
+    only_jax = [{"seed": s, "jax": jax[s]} for s in sorted(jax.keys() - port.keys())]
+    unexplained = sorted({s for s, k in port.items() if k not in DOCUMENTED}
+                         | {d["seed"] for d in only_jax if d["jax"] not in DOCUMENTED})
+    return {
+        "jax_batch": [{"rev": b.get("rev", ""), "seed_start": b["seed_start"],
+                       "n": b["n"]} for b in jbs],
+        "both": both, "only_port": only_port, "only_jax": only_jax,
+        "class_differs": [d for d in both if d["port"] != d["jax"]],
+        "unexplained": unexplained,
+    }
+
+
 def _device_name(device: str) -> str:
     if not device.startswith("cuda"):
         return "cpu"
     import torch
 
     return torch.cuda.get_device_name(torch.device(device))
+
+
+def _rev() -> str:
+    try:
+        return subprocess.run(["git", "rev-parse", "--short", "HEAD"],
+                              capture_output=True, text=True, cwd=ROOT).stdout.strip()
+    except OSError:
+        return ""
+
+
+def soak_batch(n: int, s0: int, mode: str, f64: bool, device: str, verify: bool,
+               jax_soak, artifact) -> bool:
+    """One batch: run it, compare it with the JAX soak's record when one is
+    given, append it to `artifact` unless that is None.  True iff it holds
+    an unexplained divergence."""
+    batch = run_batch(n, s0, mode, f64, device, verify)
+    bad = bool(batch["counts"].get("real"))
+    extra = {}
+    if jax_soak is not None:
+        cmp = compare_with_jax(batch, jax_soak)
+        extra["jax_soak"] = cmp
+        bad = bad or bool(cmp["unexplained"])
+        seeds = {k: [d["seed"] for d in cmp[k]]
+                 for k in ("both", "only_port", "only_jax", "class_differs")}
+        print(f"against SOAK.json ({mode}, f64={f64}, seeds {s0}-{s0 + n - 1}): "
+              + ", ".join(f"{k} {v}" for k, v in seeds.items())
+              + f", unexplained {cmp['unexplained']}", flush=True)
+    if artifact is not None:
+        batch = dict(batch, rev=_rev(), device_name=_device_name(device), **extra)
+        data = persist_batch(batch, artifact)
+        print(f"{os.path.basename(artifact)}: {data['totals']}", flush=True)
+    return bad
 
 
 def main(argv=None) -> int:
@@ -303,23 +479,34 @@ def main(argv=None) -> int:
     group.add_argument("--sensor128", action="store_true")
     ap.add_argument("--no-verify", action="store_true")
     ap.add_argument("--no-artifact", action="store_true")
+    ap.add_argument("--artifact", help="the file batches are appended to "
+                                       "(default: SOAK_torch.json at the repo's root)")
+    ap.add_argument("--against-jax", action="store_true",
+                    help="store the comparison with SOAK.json's batch as \"jax_soak\"")
+    ap.add_argument("--jax-batches", action="store_true",
+                    help="run SOAK.json's batches, with --against-jax: every "
+                         "one, or those of the mode or dtype the flags name")
     args = ap.parse_args(argv)
     mode = "g6" if args.g6 else "sensor128" if args.sensor128 else "base"
 
-    batch = run_batch(args.n_iters, args.start_seed, mode, args.f64,
-                      args.device, not args.no_verify)
-    if not args.no_artifact:
-        try:
-            rev = subprocess.run(["git", "rev-parse", "--short", "HEAD"],
-                                 capture_output=True, text=True,
-                                 cwd=ROOT).stdout.strip()
-        except OSError:
-            rev = ""
-        batch = dict(batch, rev=rev, device_name=_device_name(args.device))
-        data = persist_batch(batch, ARTIFACT)
-        print(f"SOAK_torch.json: {data['totals']}", flush=True)
-    # only unexplained ("real") divergences fail the soak
-    return 1 if batch["counts"].get("real") else 0
+    jax_soak = load_jax_soak() if args.jax_batches or args.against_jax else None
+    if args.jax_batches:
+        jobs = [(b["n"], b["seed_start"], b["mode"], b["f64"])
+                for b in jax_soak["batches"]
+                if (b["mode"] == mode or not (args.g6 or args.sensor128))
+                and (b["f64"] or not args.f64)]
+    else:
+        jobs = [(args.n_iters, args.start_seed, mode, args.f64)]
+        if jax_soak is not None:     # refuse seeds SOAK.json never ran, before running
+            try:
+                jax_batches_for(mode, args.f64, args.start_seed, args.n_iters, jax_soak)
+            except ValueError as e:
+                ap.error(str(e))
+    artifact = None if args.no_artifact else (args.artifact or ARTIFACT)
+    bad = [soak_batch(n, s0, m, f64, args.device, not args.no_verify, jax_soak, artifact)
+           for n, s0, m, f64 in jobs]
+    # only unexplained divergences fail the soak
+    return 1 if any(bad) else 0
 
 
 if __name__ == "__main__":
