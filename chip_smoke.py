@@ -44,11 +44,25 @@ seed of 128x128 frames, and every base-mode seed (float32 and float64) that
 the JAX soak's SOAK.json lists as divergent, compared with that record seed
 for seed; the seeds divergent in SOAK_torch.json's card batches (g6 aside)
 are traced frame by frame, each b.x the Hough loop refines beside the
-oracle's, those divergent on the card alone in float64 too.
+oracle's, those divergent on the card alone in float64 too; the four g6 seeds
+are read from the witness tools/parity_soak_torch.py --witness-stored stored
+in SOAK_torch.json, and the b.x of every refinement where the two sides
+agree is summed up beside the knife-edge limit.  The parity stack also holds
+the float32 replays (g4 on 31 frames, g6 on the 16 parity frames) against
+the oracle runs of the float64 phases: integers exact, endpoints within 5e-3,
+the drift's max, median and p90 printed.
+Then the structure flights of tools/structure_torch.py: the tower, the
+mockup and the dev world's figure eight at g4 and g6 on the kernels, each
+held to its record in STRUCTURE_torch.json (which must cover every flight and
+granularity on the card, every check holding), the multi-radius flight at
+g6, the g6 tower against the plain versions, the g4 flights against the host
+oracle (run in processes of their own meanwhile), both kernels against their
+plain versions and timed at every shape the flights launch that the table
+lacks, and examples/map_a_structure_torch.py in a subprocess.
 
     python3 chip_smoke.py [--earlier path/to/an/earlier/voting.cu]
                           [--parity-only | --sensor-only | --shard-only |
-                           --native-only]
+                           --native-only | --structure-only]
 
 Needs one CUDA card and nvcc; exits non-zero on any failure.  With
 --earlier, the kernels of that source (same C entries) are built too and
@@ -58,7 +72,8 @@ left out (for work on the parity stack; the last lines are printed only by a
 whole run); --sensor-only does the same for the sensor-data and display
 phases, --shard-only for the sharded and deferred phases, and --native-only
 for the node loop's native-runtime phases, the endurance stream, the CLI and
-the soak.  It prints the
+the soak, and --structure-only for the structure flights and the g6 float32
+drift against the oracle.  It prints the
 card's name and power limit, one line per check and time, then a JSON line
 of the kernels, the card line again, and last the JSON line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1286,7 +1301,8 @@ def f64_parity(label, cfg, frames, kernel, card):
     """The float64 mode on the card against the oracle backend on the host,
     frame by frame: nlines, status, world count and every world segment's
     points_size and radius exact, endpoints and intersection parameters
-    within 1e-4.  Returns (torch engine, oracle engine)."""
+    within 1e-4.  Returns (torch engine, oracle engine, the oracle's
+    per-frame records)."""
     from pointcloud_segmentation_tpu_torch import SegmentationEngine
 
     voting = counted_voting()
@@ -1295,11 +1311,12 @@ def f64_parity(label, cfg, frames, kernel, card):
     check(eng.state.a.dtype == torch.float64 and eng.state.inter.dtype == torch.float64
           and eng._tables[0].dtype == torch.float64 and eng._tables[1].dtype == torch.float32,
           f"{label}: float64 world map and direction vectors, float32 plane bases")
-    worst, t_port, t_ref, nlines = 0.0, [], [], []
+    worst, t_port, t_ref, nlines, wants = 0.0, [], [], [], []
     for k, fr in enumerate(frames):
         for e in (eng, ref):
             e.push_pose(fr.t, fr.position, fr.quat_wxyz)
         got, want = eng.process_frame(fr.t, fr.points), ref.process_frame(fr.t, fr.points)
+        wants.append(want)
         t_port.append(got["processing_time"] / 1e3)
         t_ref.append(want["processing_time"] / 1e3)
         nlines.append(got["nblines"])
@@ -1329,7 +1346,40 @@ def f64_parity(label, cfg, frames, kernel, card):
     print(f"time  {label}, {len(frames)} frames, median ms/frame: float64 on the card "
           f"{statistics.median(t_port):.3f}, the oracle on the host "
           f"{statistics.median(t_ref):.3f} [{card}]", flush=True)
-    return eng, ref
+    return eng, ref, wants
+
+
+# the float32 drift against the oracle of the same replays on a CPU: the
+# port's plain path, and the JAX package's float32 path (ROADMAP.md section 3)
+F32_CPU_DRIFT = {"g4": "CPU: port max 6.02e-6, median 6.4e-7, p90 3.0e-6; JAX max 2.81e-6, "
+                       "median 4.2e-7",
+                 "g6": "CPU: not measured"}
+
+
+def f32_against_oracle(label, gran, run, ref, want_records, card):
+    """A float32 replay on the card (`run`: its records and world segments)
+    against the oracle engine `ref` that ran the same frames on the host,
+    with its per-frame records: nblines, status and world count exact on
+    every frame, the world's count, points_size and radius (the float32 of
+    the oracle's table value) exact, every world endpoint within 5e-3.
+    Prints the endpoint error's max, median and p90."""
+    st = load_structure()
+    got = [tuple(r[f] for f in st.FRAME_INTS) for r in run["records"]]
+    want = [tuple(r[f] for f in st.FRAME_INTS) for r in want_records]
+    check(got == want, f"{label}: per-frame nblines, status and world count equal the "
+                       f"oracle's ({len(got)} frames)")
+    segs, osegs = run["segments"], ref.world_segments()
+    check([(s["points_size"], s["radius"]) for s in segs]
+          == [(o["points_size"], float(np.float32(o["radius"]))) for o in osegs],
+          f"{label}: world count ({len(segs)}), points_size and radius (float32 of the "
+          f"oracle's) equal")
+    errs = st.endpoint_errors([endpoints(s) for s in segs], [endpoints(o) for o in osegs])
+    d = st.drift(errs)
+    check(d["max"] <= st.ENDPOINT_TOL,
+          f"{label}: world endpoints within {st.ENDPOINT_TOL} of the oracle's")
+    print(f"drift {label}: endpoint error against the oracle max {d['max']:.3g} median "
+          f"{d['median']:.3g} p90 {d['p90']:.3g} m over {d['n']} endpoints [{card}]; "
+          f"{F32_CPU_DRIFT[gran]}", flush=True)
 
 
 def f64_kernel_checks(dev, frame, card):
@@ -1519,10 +1569,11 @@ def knife_edge_witness(soak) -> int:
         for key in ("only_port", "only_jax", "class_differs"):
             for d in b["jax_soak"][key]:
                 seeds[(d["seed"], b["mode"], b["f64"])] = True
-    n, worst = 0, 0.0
+    n, worst, stats = 0, 0.0, []
     for (seed, mode, f64), one_sided in sorted(seeds.items()):
         for f64_run in sorted({f64, f64 or one_sided}):
             tr = soak.knife_edge_trace(seed, mode, f64_run, "cuda")
+            stats.append(soak.bx_stats(soak.agreeing_bx(tr)))
             flips = [(v["frame"], v["round"], float(f"{v['other_bx']:.3g}"))
                      for v in soak.knife_edge_frames(tr) if v["verdict"] == "knife-edge"]
             what = f"knife edge: seed {seed} ({mode}, {'float64' if f64_run else 'float32'}) on cuda"
@@ -1535,7 +1586,40 @@ def knife_edge_witness(soak) -> int:
             n += 1
     check(n >= len(seeds) > 0, f"knife edge: {n} traces of {len(seeds)} divergent seeds on "
                                f"cuda, other side's |b.x| at most {worst:.3g} at a flip")
+    stored = stored_g6_witness(batches, soak)
+    bx = soak.merge_bx_stats(stats + [w["bx"] for w in stored])
+    g = {k: "none" if v is None else f"{v:.3g}" for k, v in bx.items()}
+    print(f"knife edge: {bx['agreeing']} refinements where the two sides agree, over {n} "
+          f"traces and {len(stored)} stored g6 witnesses: smallest nonzero |b.x| "
+          f"{g['min_nonzero']}, smallest at or above BX_NOISE {g['min_above_noise']}, "
+          f"largest gap between the sides where the oracle's |b.x| < BX_NOISE "
+          f"{g['max_inplane_gap']}; BX_NOISE {soak.BX_NOISE:g}", flush=True)
+    check((bx["max_inplane_gap"] or 0.0) >= soak.BX_NOISE,
+          f"knife edge: BX_NOISE ({soak.BX_NOISE:g}) lies within how far the two sides' b.x "
+          f"part at agreeing refinements of directions the oracle puts in the y-z plane (up "
+          f"to {g['max_inplane_gap']}): a flip it admits lies inside that disagreement")
     return n
+
+
+def stored_g6_witness(batches, soak) -> list:
+    """The witnesses that tools/parity_soak_torch.py --witness-stored stored
+    for SOAK_torch.json's g6 card batches: one for every seed a batch holds
+    divergent, each explained, every part a flip."""
+    out = []
+    for b in batches:
+        if b["device"] != "cuda" or b["mode"] != "g6" or not b["diverging"]:
+            continue
+        ws = {w["seed"]: w for w in b.get("witness", [])}
+        for d in b["diverging"]:
+            w = ws.get(d["seed"])
+            flips = [(f["frame"], f["round"], float(f"{f['other_bx']:.3g}"))
+                     for f in (w or {}).get("flips", [])]
+            check(w is not None and w["explained"] and flips and not w["unexplained_frames"]
+                  and all(x < soak.BX_NOISE for _, _, x in flips),
+                  f"knife edge: seed {d['seed']} (g6) on cuda, stored witness: every part is "
+                  f"a flip (frame, round, |b.x| on the other side) {flips}")
+            out.append(w)
+    return out
 
 
 def soak_phase(card):
@@ -1601,17 +1685,26 @@ def oracle_backend_phase(ref, tmp):
           + done.stdout.splitlines()[0])
 
 
-def parity_stack(cfg6, cfg4, frames, k6, dev, card, tmp):
+def parity_stack(cfg6, cfg4, frames, k6, dev, card, tmp, k4=None):
     import dataclasses
+
+    from pointcloud_segmentation_tpu_torch.ops.hough import KERNELS
 
     t0 = time.perf_counter()
     f64_kernel_checks(dev, frames[len(frames) // 2], card)
     part = frames[G6_PARITY_FRAMES]
-    f64_parity("float64 g6 lazy against the oracle",
-               dataclasses.replace(cfg6, compute_dtype="float64"), part, "vote_state", card)
+    _, ref6, want6 = f64_parity("float64 g6 lazy against the oracle",
+                                dataclasses.replace(cfg6, compute_dtype="float64"), part,
+                                "vote_state", card)
+    f32_against_oracle(f"f32 g6 lazy, frames {G6_PARITY_FRAMES.start}-"
+                       f"{G6_PARITY_FRAMES.stop - 1}", "g6", replay(cfg6, part, dev, KERNELS),
+                       ref6, want6, card)
     cfg4_64 = dataclasses.replace(cfg4, compute_dtype="float64")
-    eng4, ref4 = f64_parity("float64 g4 carry against the oracle", cfg4_64, frames,
-                            "vote_histogram", card)
+    eng4, ref4, want4 = f64_parity("float64 g4 carry against the oracle", cfg4_64, frames,
+                                   "vote_histogram", card)
+    f32_against_oracle(f"f32 g4 carry, {len(frames)} frames", "g4",
+                       k4 if k4 is not None else replay(cfg4, frames, dev, KERNELS),
+                       ref4, want4, card)
     lazy_equals_carry_f64(cfg4_64, frames, eng4, dev)
     batched_phase(cfg6, frames, k6, dev, card)
     sequential_fusion_phase(cfg6, frames, dev)
@@ -1619,6 +1712,249 @@ def parity_stack(cfg6, cfg4, frames, k6, dev, card, tmp):
     oracle_backend_phase(ref4, tmp)
     print(f"time  the parity stack's phases: {time.perf_counter() - t0:.1f} s [{card}]",
           flush=True)
+
+
+# ------------------------------------------------------------ structure flights
+
+# flights of tools/structure_torch.py flown here at g4 and g6 on the kernels
+# and held against the record of STRUCTURE_torch.json; the g4 ones also
+# against the host oracle, which flies them in processes of its own meanwhile
+STRUCTURE_FLIGHTS = ("tower", "mockup", "dev_r01")
+
+
+def load_structure():
+    """tools/structure_torch.py, importable by name, so that the oracle's
+    processes can unpickle its functions."""
+    tools = str(REPO / "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import structure_torch
+
+    return structure_torch
+
+
+def structure_records(st) -> dict:
+    """STRUCTURE_torch.json's records on the card, by (flight, granularity):
+    it covers every flight and granularity of the tool, and every check of
+    every record, recomputed from its fields, holds."""
+    with open(st.ARTIFACT) as f:
+        recs = {(r["flight"], r["granularity"]): r for r in json.load(f)["records"]
+                if r["device"] == "cuda"}
+    want = [(n, g) for n, fl in st.FLIGHTS.items() for g in fl.granularities]
+    missing = [k for k in want if k not in recs]
+    check(not missing, f"STRUCTURE_torch.json holds every flight and granularity on cuda "
+                       f"({len(want)} records; missing {missing or 'none'})")
+    for key in want:
+        r = recs[key]
+        bad = st.unexplained(r)
+        check(not bad and r["oracle_frames"] == r["frames"] and r["plain"] is not None,
+              f"STRUCTURE_torch.json {key[0]} g{key[1]}: kernels against plain and the card "
+              f"against the oracle over {r['oracle_frames']} of {r['frames']} frames, every "
+              f"check holds but known ones ({r['card']}){'; failing: ' + str(bad) if bad else ''}")
+        for c in (c for c, ok in st.checks_of(r).items() if not ok):
+            known_failure(f"STRUCTURE_torch.json {key[0]} g{key[1]}", c,
+                          r[c.split(":")[0]]["beyond"])
+    return recs
+
+
+def known_failure(label, check_name, beyond):
+    """Print a failing check that tools/structure_torch.py's KNOWN_FAILURES
+    lists (README §Precision contract): it stays failing, and is reported
+    on every run."""
+    segs = ", ".join(f"segment {b['segment']} {b['error']:.4g} m at b.x {b['b_x'][1]:.3g}"
+                     for b in beyond)
+    print(f"known {label}: FAILS {check_name} ({segs}; the x-division of README "
+          f"§Precision contract)", flush=True)
+
+
+def held_to_record(label, run, rec):
+    """A flight on the kernels against its record's kernels side: per-frame
+    integers, world count, points_size and radius exact, beams matched and
+    intersections equal to the record's (and so to the oracle's)."""
+    st = load_structure()
+    kern, w = rec["kernels"], run["world"]
+    check(all(run[f] == kern[f] for f in st.FRAME_INTS),
+          f"{label}: per-frame nblines, status and world count equal the record's "
+          f"({len(run['nblines'])} frames)")
+    check((w["count"], w["points_size"], w["radius"])
+          == (kern["world"]["count"], kern["world"]["points_size"], kern["world"]["radius"]),
+          f"{label}: world count ({w['count']}), points_size and radius equal the record's")
+    orc = rec["card_vs_oracle"]
+    check(w["recall"] == kern["world"]["recall"] == orc["recall"][1]
+          and w["intersections"] == kern["world"]["intersections"] == orc["intersections"][1]
+          and run["world_overflow_frames"] == 0,
+          f"{label}: {w['recall']} beams matched and {w['intersections']} intersections, as "
+          f"the record's kernels and oracle; no frame overflowed the world map")
+
+
+def structure_flights(st, recs, dev, card):
+    """Every flight of STRUCTURE_FLIGHTS at g4 and g6 and dev_multi_radius at
+    g6 on the kernels, each counted from 0 and held to its record; the g6
+    tower on the plain versions too; the g4 flights against the oracle.
+    Returns (runs by (flight, granularity), launches by (kernel, rows,
+    points, NX) with the flight that gave them)."""
+    import concurrent.futures
+    import multiprocessing
+
+    from pointcloud_segmentation_tpu_torch.ops import voting as V
+    from pointcloud_segmentation_tpu_torch.ops.hough import PLAIN, Voting
+
+    runs, launched = {}, {}
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(len(STRUCTURE_FLIGHTS), mp_context=ctx) as pool:
+        oracle = {n: pool.submit(st.fly_flight, n, 4, "oracle") for n in STRUCTURE_FLIGHTS}
+        jobs = [(n, g) for n in STRUCTURE_FLIGHTS for g in (4, 6)] + [("dev_multi_radius", 6)]
+        for name, gran in jobs:
+            cfg = st.flight_config(name, gran)
+            scene, frames = st.flight_frames(name)
+            kernel = "vote_state" if cfg.voting_mode == "lazy" else "vote_histogram"
+            V.vote_state.launches = V.vote_histogram.launches = 0
+            voting = Voting(st.Counted(V.vote_state), st.Counted(V.vote_histogram))
+            run = st.fly(cfg, scene, frames, device=dev, voting=voting)
+            n = getattr(V, kernel).launches
+            calls = getattr(voting, kernel).shapes
+            label = f"structure {name} g{gran} ({cfg.voting_mode})"
+            check(n > 0 and n == sum(calls.values()),
+                  f"{label}: launched {kernel} {n} times, on every call "
+                  f"({len(calls)} shapes)")
+            for (rows, pts, nx), c in calls.items():
+                k = (kernel, rows, pts if pts > 512 else "<= 512", nx)
+                launched.setdefault(k, [name, gran, 0])[2] += c
+            held_to_record(label, run, recs[(name, gran)])
+            runs[(name, gran)] = run
+        cfg = st.flight_config("tower", 6)
+        scene, frames = st.flight_frames("tower")
+        plain = st.fly(cfg, scene, frames, device=dev, voting=PLAIN)
+        cmp = st.compare(runs[("tower", 6)], plain, len(frames), False)
+        check(cmp["frame_integers_equal"] and cmp["world_equal"]
+              and cmp["drift"]["max"] <= st.ENDPOINT_TOL,
+              f"structure tower g6: kernels against plain on the card, per-frame integers, "
+              f"world count, points_size and radius exact, endpoints within "
+              f"{st.ENDPOINT_TOL} (worst {cmp['drift']['max']:.3g}; plain "
+              f"{plain['seconds']:.1f} s)")
+        for name in STRUCTURE_FLIGHTS:
+            ref = oracle[name].result()
+            cmp = st.compare(runs[(name, 4)], ref, len(ref["nblines"]), True)
+            d, label = cmp["drift"], f"structure {name} g4 against the oracle on the host"
+            check(cmp["frame_integers_equal"] and cmp["world_equal"]
+                  and cmp["recall"][0] == cmp["recall"][1]
+                  and cmp["intersections"][0] == cmp["intersections"][1],
+                  f"{label}: per-frame integers, world count, points_size and radius exact, "
+                  f"beams matched and intersections equal (oracle {ref['seconds']:.1f} s)")
+            tol = f"card_vs_oracle: endpoints within {st.ENDPOINT_TOL}"
+            if d["max"] > st.ENDPOINT_TOL and tol in st.KNOWN_FAILURES.get((name, 4), ()):
+                recorded = recs[(name, 4)]["card_vs_oracle"]["beyond"]
+                check(st.x_division(cmp) and [b["segment"] for b in cmp["beyond"]]
+                      == [b["segment"] for b in recorded]
+                      and all(abs(b["error"] - c["error"]) <= 1e-9
+                              for b, c in zip(cmp["beyond"], recorded)),
+                      f"{label}: the endpoints beyond {st.ENDPOINT_TOL} are the record's, "
+                      f"each in the y-z plane to within {st.X_DIVISION_BX}")
+                known_failure(label, tol, cmp["beyond"])
+            else:
+                check(d["max"] <= st.ENDPOINT_TOL,
+                      f"{label}: endpoints within {st.ENDPOINT_TOL} (worst {d['max']:.3g})")
+            runs[(name, 4)]["drift"] = d
+    return runs, launched
+
+
+def start_example(tmp):
+    """examples/map_a_structure_torch.py started in a process of its own on
+    the card, writing into tmp: (process, its out_dir, start time)."""
+    out = os.path.join(tmp, "example_tower")
+    proc = subprocess.Popen([sys.executable, str(REPO / "examples" / "map_a_structure_torch.py"),
+                             out], cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, out, time.perf_counter()
+
+
+def example_on_the_card(recs, started):
+    """The example's process: exit 0, the three CSVs with the reference
+    headers, and the world map of the tool's record of its flight."""
+    proc, out, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        fail(f"examples/map_a_structure_torch.py exited {proc.returncode}:\n{stdout}\n{stderr}")
+    secs = time.perf_counter() - t0
+    for name, header in CSV_HEADERS.items():
+        with open(os.path.join(out, name)) as f:
+            check(f.readline().strip() == header,
+                  f"example map_a_structure_torch: {name} has the reference header")
+    line = next(ln for ln in stdout.splitlines() if ln.startswith("world map:"))
+    w = recs[("example", 4)]["kernels"]["world"]
+    want = (f"world map: {w['count']} segments, {w['intersections']} intersections; "
+            f"recall {w['recall']}/12 beams")
+    check(line == want, f"example map_a_structure_torch on cuda: '{line}' as the record of "
+                        f"its flight, in {secs:.1f} s")
+
+
+def structure_shapes(sh, st, launched, dev):
+    """Each kernel against its plain version, and timed, at every (rows,
+    points, NX) the flights launched that the kernel table lacks, on the
+    busiest of every fourth frame (the most voxel points) of a flight that
+    launched it; the launches are the flights'."""
+    from pointcloud_segmentation_tpu_torch.ops.hough import (
+        _compact_removed, _pad_dirs_to_tile, direction_tables)
+
+    have = {(r["name"], r["rows"], r["n"] if r["n"] > 512 else "<= 512", r["nx"])
+            for r in sh.times}
+    g = torch.Generator().manual_seed(2)
+    for key, (name, gran, count) in sorted(launched.items(), key=str):
+        if key in have:
+            continue
+        kernel, rows, pts, nx = key
+        cfg = st.flight_config(name, gran)
+        _, frames = st.flight_frames(name)
+        p = max((voting_problem(cfg, fr, dev) for fr in frames[::4]),
+                key=lambda q: int(q[1].sum())) + (nx,)
+        _, c1, c2 = _pad_dirs_to_tile(*direction_tables(gran, dev))
+        if rows != c1.shape[0]:
+            c1, c2 = gathered(c1, c2, rows, g)
+        label = f"the {name} flight, g{gran}"
+        if kernel == "vote_state":
+            sh.state(label, p, c1, c2, timed=True)
+        elif pts == "<= 512":
+            Xs, act, half, dx, nxt, _ = p
+            n_rem = min(512, int(act.sum()))
+            rem = act & (torch.cumsum(act.to(torch.int32), 0) <= n_rem)
+            Xr = _compact_removed(Xs, rem, n_rem).contiguous()
+            live = torch.ones(n_rem, dtype=torch.bool, device=dev)
+            sh.histogram(f"{label}, a {n_rem}-column delta", (Xr, live, half, dx, nxt, nx),
+                         c1, c2, timed=True)
+        else:
+            sh.histogram(label, p, c1, c2, timed=True)
+        sh.times[-1]["launches"] = count
+
+
+def structure_stack(dev, card, sh, tmp):
+    """The structure flights of tools/structure_torch.py on the card."""
+    t0 = time.perf_counter()
+    st = load_structure()
+    recs = structure_records(st)
+    example = start_example(tmp)
+    try:
+        runs, launched = structure_flights(st, recs, dev, card)
+    except BaseException:
+        example[0].kill()
+        example[0].wait()
+        raise
+    example_on_the_card(recs, example)
+    structure_shapes(sh, st, launched, dev)
+    for (name, gran), run in runs.items():
+        rec, w = recs[(name, gran)], run["world"]
+        d, whose = run.get("drift"), "here"
+        if d is None:
+            d, whose = rec["card_vs_oracle"]["drift"], "recorded"
+        print(f"structure: {name} g{gran} ({rec['voting']}): {len(run['nblines'])} frames, "
+              f"world {w['count']}, recall {w['recall']}, intersections {w['intersections']}, "
+              f"drift against the oracle ({whose}) max {d['max']:.3g} median {d['median']:.3g} "
+              f"p90 {d['p90']:.3g} m, {run['seconds']:.1f} s [{card}]", flush=True)
+    print(f"time  the structure phases: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
 
 # ------------------------------------------- sharded execution, deferred read-back
@@ -1973,6 +2309,9 @@ def main() -> None:
                     help="the g6 replay, the node loop's native-runtime phases, the "
                          "endurance stream, the CLI and the soak only; prints no "
                          "result lines")
+    ap.add_argument("--structure-only", action="store_true",
+                    help="the kernel checks, the parity stack's f32 drift against the "
+                         "oracle and the structure flights only; prints no result lines")
     ap.add_argument("--ranks-only", action="store_true",
                     help="as --shard-only without the deferred phases: on a host "
                          "with 2 or 4 cards the ranks' collectives run over NCCL")
@@ -2034,6 +2373,24 @@ def main() -> None:
             native_stack(cfg6, frames, k6, tmp, card)
             cli_phase(tmp, card)
         soak_phase(card)
+        print("one stack only: no result lines", flush=True)
+        sys.exit(3)
+    if args.structure_only:
+        import dataclasses
+
+        from pointcloud_segmentation_tpu_torch.ops.hough import KERNELS
+
+        sh = kernel_checks(dev, frames[len(frames) // 2], card)
+        with tempfile.TemporaryDirectory(prefix="pcs_chip_smoke_") as tmp:
+            structure_stack(dev, card, sh, tmp)
+        part = frames[G6_PARITY_FRAMES]
+        _, ref6, want6 = f64_parity("float64 g6 lazy against the oracle",
+                                    dataclasses.replace(cfg6, compute_dtype="float64"),
+                                    part, "vote_state", card)
+        f32_against_oracle("f32 g6 lazy, the parity frames", "g6",
+                           replay(cfg6, part, dev, KERNELS), ref6, want6, card)
+        print(json.dumps({"shapes": [r for r in sh.times if "flight" in r["shape"]]}),
+              flush=True)
         print("one stack only: no result lines", flush=True)
         sys.exit(3)
     if args.shard_only or args.ranks_only:
@@ -2100,7 +2457,8 @@ def main() -> None:
         cli_phase(tmp, card)
         checkpoint_phase(cfg6, frames, k6, tmp)
         sensor_stack(cfg6, cfg4, frames, k6, dev, card, tmp)
-        parity_stack(cfg6, cfg4, frames, k6, dev, card, tmp)
+        parity_stack(cfg6, cfg4, frames, k6, dev, card, tmp, k4)
+        structure_stack(dev, card, sh, tmp)
         shard_stack(cfg6, cfg4, frames, k6, dev, card, tmp, sh, log)
 
     sources = {"vote_state": "tools/exp_g6_pallas.py:156",

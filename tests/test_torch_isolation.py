@@ -107,6 +107,7 @@ def test_no_source_of_the_port_imports_the_jax_package():
     paths = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "tools", "parity_soak_torch.py"),
              os.path.join(REPO, "tools", "endurance_torch.py"),
+             os.path.join(REPO, "tools", "structure_torch.py"),
              os.path.join(REPO, "examples", "map_a_structure_torch.py"),
              os.path.join(REPO, "examples", "serve_and_query_torch.py")]
     for root, _, files in os.walk(PORT):
@@ -197,6 +198,25 @@ def test_the_port_loads_its_own_native_library_and_not_the_jax_packages():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().startswith(os.path.join(REPO, "build", "torch_native"))
+
+
+def test_the_structure_tool_loads_neither_jax_nor_the_jax_package():
+    """tools/structure_torch.py flies a flight on the CPU, oracle beside
+    it, with neither loaded."""
+    code = (
+        "import importlib.util, sys\n"
+        "spec = importlib.util.spec_from_file_location('s', 'tools/structure_torch.py')\n"
+        "st = importlib.util.module_from_spec(spec); spec.loader.exec_module(st)\n"
+        "rec = st.run_flight('dev_multi_radius', 2, 'cpu', max_frames=2)\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'pointcloud_segmentation_tpu')\n"
+        "       or m.startswith(('jax.', 'pointcloud_segmentation_tpu.'))]\n"
+        "assert not bad, bad\n"
+        "print(rec['ok'])\n")
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines()[-1] == "True"
 
 
 # ----------------------------------------------------------------- parity

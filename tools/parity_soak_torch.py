@@ -42,6 +42,18 @@ f64, first seed and count) with ``--against-jax``: every batch, or with
 ``--g6``, ``--sensor128`` or ``--f64`` only the batches of that mode or of
 the float64 parity mode, so that modes can run as parallel processes.
 
+Witnesses of the knife edge:
+
+    python tools/parity_soak_torch.py 1 5011 --device cpu --witness
+    python tools/parity_soak_torch.py --witness-stored --g6 --device cuda
+
+``--witness`` traces each divergent seed of the batches it runs frame by
+frame (`knife_edge_trace`) and stores the verdicts (`witness`: each flip's
+frame, round and other side's |b.x|, and `bx_stats` of the refinements where
+the sides agree) as the batch's ``"witness"`` field; ``--witness-stored``
+runs no batch and does the same for the artifact's stored batches on
+``--device`` that have none.
+
 Mismatches are CLASSIFIED, into the two classes the JAX soak documents; any
 other is ``real``, is reported with its seed and fails the soak:
 
@@ -78,6 +90,9 @@ DOCUMENTED = ("bx-knife-edge", "f32-gate-boundary")
 # the rounding of float32 input coordinates: whether b.x comes out as exactly
 # 0.0 there is eigensolver noise
 BX_NOISE = 1e-6
+# two refined directions further apart than this (rad) belong to different
+# lines: more than float32 rounding, well under the g6 grid's spacing
+SAME_DIRECTION = 1e-3
 
 
 def random_cfg(rng, mode: str = "base", f64: bool = False):
@@ -222,8 +237,9 @@ def knife_edge_trace(seed: int, mode: str = "base", f64: bool = False,
     """One seed on both backends, frame by frame.  For each backend: every
     frame's status and line count, and the b.x of every direction its Hough
     loop refined, in order (the value the reference aborts on when it is
-    exactly 0.0), read by tapping the backend's canonicalize_direction for
-    the run.  ``errors`` is `compare_worlds` of the two world maps."""
+    exactly 0.0), and that direction whole (``b``), read by tapping the
+    backend's canonicalize_direction for the run.  ``errors`` is
+    `compare_worlds` of the two world maps."""
     from pointcloud_segmentation_tpu_torch.ops import hough
     from pointcloud_segmentation_tpu_torch.oracle import _geometry
     from pointcloud_segmentation_tpu_torch.runtime import SegmentationEngine
@@ -231,11 +247,12 @@ def knife_edge_trace(seed: int, mode: str = "base", f64: bool = False,
     cfg, frames = random_case(seed, mode, f64)
     out = {}
     for backend, mod in (("oracle", _geometry), ("torch", hough)):
-        orig, bx = mod.canonicalize_direction, []
+        orig, bx, bs = mod.canonicalize_direction, [], []
 
-        def tap(b, *a, _orig=orig, _bx=bx, **k):
+        def tap(b, *a, _orig=orig, _bx=bx, _bs=bs, **k):
             b = _orig(b, *a, **k)
             _bx[-1].append(float(b[0]))
+            _bs[-1].append([float(v) for v in b])
             return b
 
         mod.canonicalize_direction = tap
@@ -244,13 +261,14 @@ def knife_edge_trace(seed: int, mode: str = "base", f64: bool = False,
             recs = []
             for fr in frames:
                 bx.append([])
+                bs.append([])
                 eng.push_pose(fr.t, fr.position, fr.quat_wxyz)
                 recs.append(eng.process_frame(fr.t, fr.points))
         finally:
             mod.canonicalize_direction = orig
         out[backend] = {"status": [r["status"] for r in recs],
                         "nblines": [r["nblines"] for r in recs],
-                        "bx": bx, "world": eng.world_snapshot()}
+                        "bx": bx, "b": bs, "world": eng.world_snapshot()}
     out["errors"] = compare_worlds(out["oracle"]["world"], out["torch"]["world"])
     return out
 
@@ -285,6 +303,116 @@ def knife_edge_explained(trace: dict) -> bool:
     verdicts = [v["verdict"] for v in knife_edge_frames(trace)]
     return not trace["errors"] or ("unexplained" not in verdicts
                                    and "knife-edge" in verdicts)
+
+
+def agreeing_bx(trace: dict) -> list:
+    """(oracle b.x, port b.x) of each refinement where the two sides agree:
+    on the abort (b.x exactly 0.0 on both or on neither), and on the
+    direction (within SAME_DIRECTION rad, where the trace holds the whole
+    directions; two loops that picked different lines are no measure of
+    rounding), frame by frame up to the frame's first flip."""
+    o, t = trace["oracle"], trace["torch"]
+    pairs = []
+    for k, (bo, bt) in enumerate(zip(o["bx"], t["bx"])):
+        for j, (x, y) in enumerate(zip(bo, bt)):
+            if (x == 0.0) != (y == 0.0):
+                break
+            if "b" in o and "b" in t:
+                u, v = np.asarray(o["b"][k][j]), np.asarray(t["b"][k][j])
+                cos = abs(u @ v) / (np.linalg.norm(u) * np.linalg.norm(v))
+                if np.arccos(min(cos, 1.0)) > SAME_DIRECTION:
+                    continue
+            pairs.append((x, y))
+    return pairs
+
+
+def bx_stats(pairs: list) -> dict:
+    """Of (oracle b.x, port b.x) pairs at agreeing refinements: the smallest
+    nonzero |b.x| on either side, the smallest at or above BX_NOISE, and the
+    largest gap between the sides where the oracle's |b.x| is below
+    BX_NOISE (how far the sides part on a direction the oracle puts in the
+    y-z plane).  None where no pair qualifies."""
+    vals = [abs(v) for p in pairs for v in p if v != 0.0]
+    gaps = [abs(x - y) for x, y in pairs if abs(x) < BX_NOISE]
+    return {"agreeing": len(pairs),
+            "min_nonzero": min(vals, default=None),
+            "min_above_noise": min((v for v in vals if v >= BX_NOISE), default=None),
+            "max_inplane_gap": max(gaps, default=None)}
+
+
+def merge_bx_stats(stats: list) -> dict:
+    """`bx_stats` of several traces as one."""
+    def pick(key, fn):
+        vals = [s[key] for s in stats if s[key] is not None]
+        return fn(vals) if vals else None
+
+    return {"agreeing": sum(s["agreeing"] for s in stats),
+            "min_nonzero": pick("min_nonzero", min),
+            "min_above_noise": pick("min_above_noise", min),
+            "max_inplane_gap": pick("max_inplane_gap", max)}
+
+
+def witness(seed: int, mode: str, f64: bool, device: str) -> dict:
+    """One seed's `knife_edge_trace`, judged and kept small: the statuses,
+    the world errors, each flip (frame, round, the other side's |b.x|),
+    the frames left unexplained, whether the divergence is explained, and
+    the trace's `bx_stats`."""
+    tr = knife_edge_trace(seed, mode, f64, device)
+    frames = knife_edge_frames(tr)
+    return {"seed": seed, "f64": f64,
+            "status": {"oracle": tr["oracle"]["status"], "torch": tr["torch"]["status"]},
+            "errors": tr["errors"],
+            "flips": [{"frame": v["frame"], "round": v["round"], "other_bx": v["other_bx"]}
+                      for v in frames if v["verdict"] == "knife-edge"],
+            "unexplained_frames": [v["frame"] for v in frames
+                                   if v["verdict"] == "unexplained"],
+            "explained": knife_edge_explained(tr),
+            "bx": bx_stats(agreeing_bx(tr))}
+
+
+def witness_batch(batch: dict, device: str) -> list:
+    """`witness` of every seed the batch holds divergent."""
+    out = []
+    for d in batch["diverging"]:
+        w = witness(d["seed"], batch["mode"], batch["f64"], device)
+        print(f"witness: seed {d['seed']} ({batch['mode']}, f64={batch['f64']}) on {device}: "
+              f"{'explained' if w['explained'] else 'UNEXPLAINED'}; flips (frame, round, "
+              f"other side's |b.x|) {[(f['frame'], f['round'], f['other_bx']) for f in w['flips']]}",
+              flush=True)
+        out.append(w)
+    return out
+
+
+def witness_stored(path: str, device: str, mode=None, f64_only: bool = False) -> bool:
+    """Trace the divergent seeds of every batch stored in `path` that ran on
+    `device` (of `mode`, and float64 only with f64_only, when given) and has
+    no ``"witness"`` yet, and store each batch's witnesses in place.  True
+    iff a seed is left unexplained."""
+    import fcntl
+
+    def key(b):
+        return (b["mode"], bool(b["f64"]), b["device"], b["seed_start"], b["n"])
+
+    with open(path) as f:
+        todo = [b for b in json.load(f).get("batches", [])
+                if b["device"] == device and b["diverging"] and "witness" not in b
+                and (mode is None or b["mode"] == mode) and (b["f64"] or not f64_only)]
+    done = {key(b): witness_batch(b, device) for b in todo}
+    with open(path + ".lock", "w") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        with open(path) as f:
+            data = json.load(f)
+        for b in data["batches"]:
+            if key(b) in done and "witness" not in b:
+                b["witness"] = done[key(b)]
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(data, f, indent=1)
+            f.write("\n")
+        os.replace(tmp, path)
+    print(f"witness: {sum(map(len, done.values()))} seeds of {len(done)} stored batches "
+          f"on {device}", flush=True)
+    return any(not w["explained"] for ws in done.values() for w in ws)
 
 
 def classify(seed: int, mode: str, f64: bool, device: str, verify: bool) -> tuple:
@@ -445,13 +573,17 @@ def _rev() -> str:
 
 
 def soak_batch(n: int, s0: int, mode: str, f64: bool, device: str, verify: bool,
-               jax_soak, artifact) -> bool:
+               jax_soak, artifact, with_witness: bool = False) -> bool:
     """One batch: run it, compare it with the JAX soak's record when one is
-    given, append it to `artifact` unless that is None.  True iff it holds
-    an unexplained divergence."""
+    given, trace its divergent seeds when `with_witness`, append it to
+    `artifact` unless that is None.  True iff it holds an unexplained
+    divergence."""
     batch = run_batch(n, s0, mode, f64, device, verify)
     bad = bool(batch["counts"].get("real"))
     extra = {}
+    if with_witness:
+        extra["witness"] = witness_batch(batch, device)
+        bad = bad or not all(w["explained"] for w in extra["witness"])
     if jax_soak is not None:
         cmp = compare_with_jax(batch, jax_soak)
         extra["jax_soak"] = cmp
@@ -486,8 +618,19 @@ def main(argv=None) -> int:
     ap.add_argument("--jax-batches", action="store_true",
                     help="run SOAK.json's batches, with --against-jax: every "
                          "one, or those of the mode or dtype the flags name")
+    ap.add_argument("--witness", action="store_true",
+                    help="trace each divergent seed of the batches run and store "
+                         "the verdicts as the batch's \"witness\"")
+    ap.add_argument("--witness-stored", action="store_true",
+                    help="run no batch: trace the divergent seeds of the artifact's "
+                         "batches on --device that have no witness (those of the "
+                         "mode or dtype the flags name) and store it in place")
     args = ap.parse_args(argv)
     mode = "g6" if args.g6 else "sensor128" if args.sensor128 else "base"
+    if args.witness_stored:
+        named = "g6" if args.g6 else "sensor128" if args.sensor128 else None
+        return 1 if witness_stored(args.artifact or ARTIFACT, args.device, named,
+                                   args.f64) else 0
 
     jax_soak = load_jax_soak() if args.jax_batches or args.against_jax else None
     if args.jax_batches:
@@ -503,7 +646,8 @@ def main(argv=None) -> int:
             except ValueError as e:
                 ap.error(str(e))
     artifact = None if args.no_artifact else (args.artifact or ARTIFACT)
-    bad = [soak_batch(n, s0, m, f64, args.device, not args.no_verify, jax_soak, artifact)
+    bad = [soak_batch(n, s0, m, f64, args.device, not args.no_verify, jax_soak, artifact,
+                      args.witness)
            for n, s0, m, f64 in jobs]
     # only unexplained divergences fail the soak
     return 1 if any(bad) else 0
