@@ -187,24 +187,32 @@ def bound(kind: str, n: int, n_active: int, rows: int, nxs: int) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def launcher(lib, name, Xs, act, c1, c2, half, dx, nx, NX):
+def gated_entries(lib) -> bool:
+    """Whether the library's C entries take the gate (this source's do; an
+    earlier source given to --earlier may not)."""
+    return getattr(lib, "gated", True)
+
+
+def launcher(lib, name, Xs, act, c1, c2, half, dx, nx, NX, gate=None, outs=None):
     """One launch of `name`'s kernel from the library `lib`, with the
-    wrapper's outputs and scalars made once: the kernel alone, so that two
-    libraries with the same C entries are timed alike."""
+    wrapper's outputs and scalars made once (or `outs`): the kernel alone,
+    so that two libraries with the same C entries are timed alike.  `gate`:
+    a device int32 tensor, or None (no gate)."""
     from pointcloud_segmentation_tpu_torch.ops import voting as V
 
     B, N = c1.shape[0], Xs.shape[0]
     half_dx, nxt, _ = V._launch_args(Xs, half, dx, nx)
-    if name == "vote_state":
-        outs = [torch.empty(B, dtype=torch.int32, device=Xs.device) for _ in range(3)]
-        entry = lib.pcs_vote_state
-    else:
-        outs = [torch.empty((B, NX, NX), dtype=torch.int32, device=Xs.device)]
-        entry = lib.pcs_vote_histogram
-    args = (Xs.data_ptr(), act.data_ptr(), N, c1.data_ptr(), c2.data_ptr(), B,
-            half_dx.data_ptr(), nxt.data_ptr(), NX, *(o.data_ptr() for o in outs))
+    if outs is None:
+        shape = (B,) if name == "vote_state" else (B, NX, NX)
+        outs = [torch.empty(shape, dtype=torch.int32, device=Xs.device)
+                for _ in range(3 if name == "vote_state" else 1)]
+    entry = lib.pcs_vote_state if name == "vote_state" else lib.pcs_vote_histogram
+    args = [Xs.data_ptr(), act.data_ptr(), N, c1.data_ptr(), c2.data_ptr(), B,
+            half_dx.data_ptr(), nxt.data_ptr(), NX, *(o.data_ptr() for o in outs)]
+    if gated_entries(lib):
+        args.append(None if gate is None else gate.data_ptr())
 
-    def run(keep=(half_dx, nxt, outs)):   # keep: the tensors behind args
+    def run(keep=(half_dx, nxt, outs, gate)):   # keep: the tensors behind args
         err = entry(*args, torch.cuda.current_stream().cuda_stream)
         if err:
             fail(f"{name} launch failed: CUDA error {err}")
@@ -288,6 +296,48 @@ class Shapes:
             self.time("vote_histogram", label, Xs, act, c1, c2, half, dx, nx, NX,
                       compare=True)
 
+    def gated(self, name, label, p, c1, c2):
+        """The kernel of `p`'s mode with its gate: closed (0), the C entry
+        writes nothing into outputs filled with -7 and the plain version
+        returns zeros; open (1, as an int32 and as a bool through the
+        wrapper), both equal the plain version's output."""
+        from pointcloud_segmentation_tpu_torch.ops import voting as V
+
+        Xs, act, half, dx, nx, NX = p
+        wrapper, plain = getattr(V, name), getattr(V, name + "_plain")
+        want = plain(Xs, act, c1, c2, half, dx, nx, NX)
+        want = want if name == "vote_state" else (want,)
+        shape = (c1.shape[0],) if name == "vote_state" else (c1.shape[0], NX, NX)
+        closed = torch.zeros(1, dtype=torch.int32, device=Xs.device)
+        outs = [torch.full(shape, -7, dtype=torch.int32, device=Xs.device) for _ in want]
+        shut = launcher(self.lib, name, Xs, act, c1, c2, half, dx, nx, NX, closed, outs)
+        shut()
+        zeros = plain(Xs, act, c1, c2, half, dx, nx, NX, closed)
+        zeros = zeros if name == "vote_state" else (zeros,)
+        torch.cuda.synchronize()
+        untouched = all(bool((o == -7).all()) for o in outs)
+        check(untouched and all(not z.any() for z in zeros),
+              f"{name} gate 0, {label} ({c1.shape[0]} rows, NX {NX}): the kernel wrote "
+              f"nothing, the plain version gave zeros")
+        opened = torch.ones(1, dtype=torch.int32, device=Xs.device)
+        open_ms = graph_ms(launcher(self.lib, name, Xs, act, c1, c2, half, dx, nx, NX,
+                                    opened))
+        print(f"time  {name} gated, {label} ({c1.shape[0]} rows, NX {NX}): gate 0 "
+              f"{graph_ms(shut):.4f} ms, gate 1 {open_ms:.4f} ms (CUDA-graph replays of "
+              f"the launch alone) [{self.card}]", flush=True)
+        e = 0
+        for gate in (torch.ones((), dtype=torch.int32, device=Xs.device),
+                     torch.ones((), dtype=torch.bool, device=Xs.device)):
+            got = wrapper(Xs, act, c1, c2, half, dx, nx, NX, gate)
+            got = got if name == "vote_state" else (got,)
+            pl = plain(Xs, act, c1, c2, half, dx, nx, NX, gate)
+            pl = pl if name == "vote_state" else (pl,)
+            e = max([e] + [max_err(a, b) for a, b in zip(got, want)]
+                    + [max_err(a, b) for a, b in zip(pl, want)])
+        self.errs[name] = max(self.errs[name], e)
+        check(e == 0, f"{name} gate 1, {label}: kernel and plain version equal the "
+                      f"ungated plain version, max err {e}")
+
     def time(self, name, label, Xs, act, c1, c2, half, dx, nx, NX, compare=False):
         """Kernel ms (CUDA-graph replays of the kernel's launch alone), plain
         and library ms, and the bound.  With an earlier library and
@@ -369,10 +419,19 @@ def kernel_checks(dev, frame, card, earlier=None):
         sh.histogram("g4", p4, c14, c24, timed=timed)
         n_rem = min(512, int(act4.sum()))
         rem = act4 & (torch.cumsum(act4.to(torch.int32), 0) <= n_rem)
-        Xr = _compact_removed(X4, rem, n_rem).contiguous()
-        live = torch.ones(n_rem, dtype=torch.bool, device=dev)
+        Xr, live = _compact_removed(X4, rem, n_rem, 512)
         sh.histogram(f"a {n_rem}-column delta", (Xr, live, half4, dx4, nx4, NX),
                      c14, c24, timed=timed)
+        if timed:
+            # the gate of every main-path launch form: the lazy state, the
+            # re-exam tiers, the carry histogram and its delta
+            sh.gated("vote_state", "the full g6 table", p6, c16, c26)
+            for rows in (2048, 256):
+                sh.gated("vote_state", f"{rows} gathered rows", p6,
+                         *gathered(c16, c26, rows, g))
+            sh.gated("vote_histogram", "g4", p4, c14, c24)
+            sh.gated("vote_histogram", f"a {n_rem}-column delta",
+                     (Xr, live, half4, dx4, nx4, NX), c14, c24)
         if timed:
             shard_shape_checks(sh, cfg6, cfg4, p6, p4, dev)
         if radius == 0.015:
@@ -498,15 +557,27 @@ class Counted:
         return self.fn(Xs, active, c1, *args)
 
 
-def replay(cfg, frames, dev, voting):
+def replay(cfg, frames, dev, voting, per_frame=False):
+    """One engine (its default loop for `voting`) over the frames: records,
+    world segments and state at the end, the engine, and with `per_frame`
+    the world state after each frame."""
     from pointcloud_segmentation_tpu_torch import SegmentationEngine
     from pointcloud_segmentation_tpu_torch.convert import world_state_to_numpy
 
     eng = SegmentationEngine(cfg, dev, voting=voting)
-    recs = eng.run_replay(frames)
+    if per_frame:
+        recs, states = [], []
+        for fr in frames:
+            recs += eng.run_replay([fr])
+            states.append(world_state_to_numpy(eng.state))
+    else:
+        recs = eng.run_replay(frames)
     torch.cuda.synchronize()
-    return {"records": recs, "segments": eng.world_segments(),
-            "state": world_state_to_numpy(eng.state)}
+    out = {"records": recs, "segments": eng.world_segments(),
+           "state": world_state_to_numpy(eng.state), "engine": eng}
+    if per_frame:
+        out["states"] = states
+    return out
 
 
 def beams_matched(segs) -> int:
@@ -566,12 +637,12 @@ def launches_of(label, voting, name="vote_state") -> int:
     return launches[name]
 
 
-def counted_run(label, cfg, frames, dev, name):
-    """One path of the main path, its kernel's launch count set to 0 just
-    before and read just after; returns (run, launches).  The run keeps its
-    calls by (rows, points) under "shapes"."""
+def counted_run(label, cfg, frames, dev, name, per_frame=False):
+    """One path of the main path on the eager engine, its kernel's launch
+    count set to 0 just before and read just after; returns (run,
+    launches).  The run keeps its calls by (rows, points) under "shapes"."""
     voting = counted_voting()
-    run = replay(cfg, frames, dev, voting)
+    run = replay(cfg, frames, dev, voting, per_frame)
     n = launches_of(label, voting, name)
     run["shapes"] = dict(getattr(voting, name).shapes)
     return run, n
@@ -923,6 +994,275 @@ def checkpoint_phase(cfg, frames, ref, tmp):
           "the straight g6 replay")
 
 
+# ----------------------------------------------------------- the graph step
+
+GRAPH_REPEATS = 5       # interleaved replays of each loop for ms/frame
+GRAPH_TIMED = slice(8, 24)   # the frames of each timed replay, in mid-flight
+
+
+def lockstep_pair(label, cfg, frames, dev):
+    """The graph engine (the card's default) and the eager engine side by
+    side, frame by frame: each frame's record (world count, nlines, status)
+    and the world state after it bit-equal.  Returns (graph engine, eager
+    engine)."""
+    from pointcloud_segmentation_tpu_torch import SegmentationEngine
+    from pointcloud_segmentation_tpu_torch.convert import world_state_to_numpy
+
+    g = SegmentationEngine(cfg, dev)
+    e = SegmentationEngine(cfg, dev, loop="eager")
+    check((g.loop, e.loop) == ("graph", "eager"),
+          f"{label}: the engine's default on the card is the graph step")
+    bad = []
+    for k, fr in enumerate(frames):
+        recs = []
+        for eng in (g, e):
+            eng.push_pose(fr.t, fr.position, fr.quat_wxyz)
+            r = eng.process_frame(fr.t, fr.points)
+            recs.append((r["seg_vec_size"], r["nblines"], r["status"]))
+        if recs[0] != recs[1] or not same_state(world_state_to_numpy(g.state),
+                                                world_state_to_numpy(e.state)):
+            bad.append(k)
+    check(not bad, f"{label}: graph engine == eager engine on every frame ({len(frames)} "
+                   f"frames: records and world state bit for bit; frames that differ {bad})")
+    step = g._step
+    check(step.replays == len(frames) and len(step.captures) == 1,
+          f"{label}: one capture, {step.replays} replays")
+    return g, e
+
+
+def graph_main_path(cfg6, cfg4, frames, dev, k6, k4, card):
+    """The main path as a user drives it: the engine's default on the card,
+    one CUDA graph a frame, over the g6 lazy and g4 carry replays, every
+    count set to 0 just before each and read just after.  Each frame's
+    record and world state is held bit for bit against the eager engine's
+    (k6, k4: counted runs with per-frame states).  Returns ({label: (graph
+    run, eager run)}, {kernel: (launches, open launches)})."""
+    from pointcloud_segmentation_tpu_torch.ops import voting as V
+    from pointcloud_segmentation_tpu_torch.ops.hough import KERNELS, round_count
+
+    pairs, launches = {}, {}
+    for label, name, cfg, eager in (("g6 lazy", "vote_state", cfg6, k6),
+                                    ("g4 carry", "vote_histogram", cfg4, k4)):
+        V.reset_counts()
+        run = replay(cfg, frames, dev, KERNELS, per_frame=True)
+        fn = getattr(V, name)
+        total, gated, opened = fn.launches, fn.gated_launches, V.open_launches(fn)
+        launches[name] = (total, opened)
+        print(f"launches, {label} replay through the graph step: {name} {total} "
+              f"({gated} gated), of which {opened} voted (gate open or none) and "
+              f"{total - opened} were closed by their gate; vote_state {V.vote_state.launches}, "
+              f"vote_histogram {V.vote_histogram.launches}", flush=True)
+        check(opened > 0, f"{label} replay through the graph step: {name} voted in "
+                          f"{opened} of its {total} launches")
+        eng = run["engine"]
+        step = eng._step
+        check(eng.loop == "graph" and step.replays == len(frames)
+              and len(step.captures) == 1,
+              f"{label} replay: the engine's default on the card is the graph step, one "
+              f"capture and {step.replays} replays")
+        bad = [k for k, (r, e, a, b) in enumerate(zip(run["records"], eager["records"],
+                                                       run["states"], eager["states"]))
+               if (r["seg_vec_size"], r["nblines"]) != (e["seg_vec_size"], e["nblines"])
+               or not same_state(a, b)]
+        check(len(run["records"]) == len(eager["records"]) == len(frames) and not bad,
+              f"graph {label}: graph engine == eager engine on every frame ({len(frames)} "
+              f"frames: records and world state bit for bit; frames that differ {bad})")
+        cap = step.captures[0]
+        print(f"time  graph {label}: capture {cap['seconds']:.3f} s (warm-up frame and "
+              f"capture), the graph's pool {cap['pool_bytes'] / 2**20:.1f} MiB of "
+              f"memory_reserved ({cap['reserved_after'] / 2**20:.1f} MiB reserved after "
+              f"the capture), {round_count(cfg)} rounds a frame [{card}]", flush=True)
+        pairs[label] = (run, eager)
+    return pairs, launches
+
+
+def profile_frame(eng, fr) -> dict:
+    """One frame of `eng` under torch.profiler: launch counts
+    (cli.launch_counts), the kernels' device ms (those inside a replayed
+    graph included) and wall ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pointcloud_segmentation_tpu_torch.cli import launch_counts
+
+    eng.push_pose(fr.t, fr.position, fr.quat_wxyz)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.process_frame(fr.t, fr.points)
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    out = launch_counts(events)
+    kernels = sorted(((getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0)) / 1e3, e.count, e.key)
+                      for e in events if e.device_type == DeviceType.CUDA), reverse=True)
+    out["device_ms"] = sum(ms for ms, _, _ in kernels)
+    out["top"] = kernels[:5]          # (device ms, launches, kernel name)
+    out["wall_ms"] = wall
+    return out
+
+
+def graph_phase(cfg6, cfg4, frames, dev, card, tmp, pairs):
+    """The graph step (pipeline.make_process_frame_packed, the engine's
+    default on the card) against the eager engine, beyond the main path's
+    g6 and g4 replays (`pairs`, from graph_main_path): bit for bit on the
+    radius-0.015 frames, the float64 g6 parity frames, the mockup flight at
+    g4, the batched and pipelined replays, a checkpoint resume and a
+    lockstep stream; the launches, host reads and device time of one frame
+    each way and of a frame whose every round is dead; ms/frame in turns."""
+    import dataclasses
+
+    from pointcloud_segmentation_tpu_torch import SegmentationEngine
+    from pointcloud_segmentation_tpu_torch.config import default_config
+    from pointcloud_segmentation_tpu_torch.convert import world_state_to_numpy
+    from pointcloud_segmentation_tpu_torch.io.replay import save_frames
+    from pointcloud_segmentation_tpu_torch.ops.hough import round_count
+
+    t_phase = time.perf_counter()
+    engines = {label: (g["engine"], e["engine"]) for label, (g, e) in pairs.items()}
+    cfg6s = default_config(radius_sizes=(0.015,))
+    lockstep_pair("graph g6 radius 0.015, frames 10-14", cfg6s, frames[10:15], dev)
+    part = frames[G6_PARITY_FRAMES]
+    lockstep_pair(f"graph float64 g6, frames {G6_PARITY_FRAMES.start}-"
+                  f"{G6_PARITY_FRAMES.stop - 1}",
+                  dataclasses.replace(cfg6, compute_dtype="float64"), part, dev)
+
+    # the mockup flight at g4, graph against eager, and held to its record
+    st = load_structure()
+    recs = structure_records(st)
+    scene, mframes = st.flight_frames("mockup")
+    mcfg = st.flight_config("mockup", 4)
+    runs = {loop: st.fly(mcfg, scene, mframes, device=dev, loop=loop)
+            for loop in ("graph", "eager")}
+    cmp = st.compare(runs["graph"], runs["eager"], len(mframes), False)
+    check(cmp["frame_integers_equal"] and cmp["world_equal"] and cmp["drift"]["max"] == 0.0
+          and runs["graph"]["endpoints_by_frame"] == runs["eager"]["endpoints_by_frame"],
+          f"graph mockup g4: per-frame integers and every frame's world endpoints equal "
+          f"the eager flight's ({len(mframes)} frames)")
+    rec = recs[("mockup", 4)]
+    held_to_record("graph mockup g4", runs["graph"], rec)
+    # against the record's oracle side: the same segment beyond the
+    # tolerance, by the same error, as the structure phase's known line
+    cmp = st.compare(runs["graph"], rec["oracle"], len(mframes), True)
+    recorded = rec["card_vs_oracle"]["beyond"]
+    check([b["segment"] for b in cmp["beyond"]] == [b["segment"] for b in recorded]
+          and all(abs(b["error"] - c["error"]) <= 1e-9
+                  for b, c in zip(cmp["beyond"], recorded)),
+          "graph mockup g4 against the record's oracle: the endpoints beyond "
+          f"{st.ENDPOINT_TOL} are the record's")
+    known_failure("graph mockup g4 against the record's oracle",
+                  f"card_vs_oracle: endpoints within {st.ENDPOINT_TOL}", cmp["beyond"])
+
+    # the batched and pipelined replays, a checkpoint resume and a lockstep
+    # stream through the graph engine, each against the eager g6 replay
+    ref = pairs["g6 lazy"][1]
+    want = ref["state"]
+    for kw in ({"batch": 4}, {"pipelined": True}):
+        eng = SegmentationEngine(cfg6, dev)
+        recs = eng.run_replay(frames, **kw)
+        check(eng.loop == "graph" and eng._step.replays == len(frames)
+              and [(r["seg_vec_size"], r["nblines"]) for r in recs]
+              == [(r["seg_vec_size"], r["nblines"]) for r in ref["records"]]
+              and same_state(world_state_to_numpy(eng.state), want),
+              f"graph run_replay({', '.join(f'{k}={v}' for k, v in kw.items())}): "
+              f"{eng._step.replays} replays, records and world state equal the eager "
+              f"replay's")
+    ckpt = os.path.join(tmp, "graph_state.npz")
+    first = SegmentationEngine(cfg6, dev)
+    first.run_replay(frames[:15])
+    first.save_checkpoint(ckpt)
+    resumed = SegmentationEngine(cfg6, dev)
+    resumed.run_replay(frames[:3])              # a captured graph and a map to replace
+    resumed.load_checkpoint(ckpt)
+    resumed.run_replay(frames[15:])
+    check(same_state(world_state_to_numpy(resumed.state), want)
+          and resumed._step.state is resumed.state,
+          "graph checkpoint: resumed after frame 15 into a running graph engine, the world "
+          "state bit-identical to the eager g6 replay")
+    log = os.path.join(tmp, "graph_replay.pcsl")
+    save_frames(log, frames)
+    eng = SegmentationEngine(cfg6, dev)
+    eng.start()
+    try:
+        for i, fr in enumerate(frames):
+            eng.push_pose(fr.t, fr.position, fr.quat_wxyz)
+            eng.submit_cloud(fr.t, fr.points)
+            if not eng.drain(target_total=i + 1, timeout=120.0):
+                fail(f"graph lockstep stream: frame {i} not accounted for in 120 s")
+    finally:
+        eng.stop()
+    check(eng.frames_processed == len(frames) and no_sentinels(eng.records)
+          and [(r["seg_vec_size"], r["nblines"]) for r in eng.records]
+          == [(r["seg_vec_size"], r["nblines"]) for r in ref["records"]]
+          and same_state(world_state_to_numpy(eng.state), want),
+          f"graph lockstep stream (deferred read-back): {eng.frames_processed} frames, "
+          f"records and world state equal the eager replay's")
+    out = eng.run_streaming_from_log(log, rate_hz=0.0)
+    check(out["drained"] and out["failed"] == 0 and out["fed"] == out["processed"]
+          + out["dropped"] + out["skipped"],
+          f"graph unpaced stream: {out['processed']} processed, {out['dropped']} dropped of "
+          f"{out['fed']} fed, drained")
+
+    # one frame of each loop under the profiler, after the replay: frame 10
+    # again, and a frame of NaN points (degenerate: every round dead)
+    later = frames[-1].t + 1.0
+    fr10 = dataclasses.replace(frames[10], t=later)
+    nan = dataclasses.replace(frames[10], t=later + 1.0, points=np.zeros((0, 3), np.float32))
+    for label, (g, e) in engines.items():
+        prof = {}
+        for loop, eng in (("graph", g), ("eager", e)):
+            for what, f in (("frame 10", fr10), ("a NaN frame", nan)):
+                prof[(loop, what)] = p = profile_frame(eng, f)
+                print(f"time  {loop} {label}, {what} under the profiler: "
+                      f"{p['graph_launches']} cudaGraphLaunch, {p['kernel_launches']} "
+                      f"cudaLaunchKernel, {p['host_reads']} host reads, device "
+                      f"{p['device_ms']:.3f} ms, wall {p['wall_ms']:.3f} ms [{card}]",
+                      flush=True)
+        gp = prof[("graph", "frame 10")]
+        for ms, n, name in gp["top"]:
+            print(f"      graph {label}, frame 10: {ms:.3f} ms ({ms / gp['device_ms']:.1%}) in "
+                  f"{n} launches of {name[:90]}", flush=True)
+        check(gp["graph_launches"] == 1 and gp["kernel_launches"] <= 20
+              and gp["host_reads"] == 1,
+              f"graph {label}: one frame is 1 cudaGraphLaunch, {gp['kernel_launches']} "
+              f"cudaLaunchKernel (<= 20) and {gp['host_reads']} host read")
+        dead = prof[("graph", "a NaN frame")]["device_ms"] - \
+            prof[("eager", "a NaN frame")]["device_ms"]
+        R = round_count(g.cfg)
+        print(f"time  graph {label}: {R} dead rounds of a NaN frame take {dead:.3f} ms of "
+              f"device time beyond the eager NaN frame's, {dead / R:.4f} ms a round "
+              f"[{card}]", flush=True)
+
+    # ms/frame in turns: graph, eager, eager, graph, ... on fresh maps
+    timed = frames[GRAPH_TIMED]
+    blank = os.path.join(tmp, "graph_blank.npz")
+    for label, (g, e) in engines.items():
+        SegmentationEngine(g.cfg, dev, loop="eager").save_checkpoint(blank)
+        runs = {"graph": [], "eager": []}
+        order = ["graph", "eager", "eager", "graph"] * ((GRAPH_REPEATS + 1) // 2)
+        for loop in order[:2 * GRAPH_REPEATS]:
+            eng = g if loop == "graph" else e
+            eng.load_checkpoint(blank)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            recs = eng.run_replay(timed)
+            torch.cuda.synchronize()
+            if len(recs) != len(timed):
+                fail(f"{loop} {label}: {len(recs)} of {len(timed)} timed frames processed")
+            wall = (time.perf_counter() - t0) * 1e3 / len(timed)
+            runs[loop].append((statistics.median(r["processing_time"] for r in recs) / 1e3,
+                               wall))
+        for loop, vals in runs.items():
+            med = [m for m, _ in vals]
+            walls = [w for _, w in vals]
+            print(f"time  {loop} {label}, frames {GRAPH_TIMED.start}-{GRAPH_TIMED.stop - 1} x "
+                  f"{len(vals)} replays in turns "
+                  f"(graph, eager, eager, graph): median ms/frame {statistics.median(med):.3f} "
+                  f"(spread {min(med):.3f}-{max(med):.3f}), wall ms/frame "
+                  f"{statistics.median(walls):.3f} (spread {min(walls):.3f}-{max(walls):.3f}) "
+                  f"[{card}]", flush=True)
+    print(f"time  graph phase {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+
+
 # ------------------------------------------------- sensor data and display
 
 def same_frames(a, b) -> bool:
@@ -1220,14 +1560,18 @@ def sensor_cli_phase(bag, tmp, card):
           and (info["granularity"], info["num_directions"], info["num_x_max"],
                info["max_points"], info["max_world_segments"]) == (6, 20481, 79, 4096, 64),
           f"cli inspect: the shipped config's shape facts on {info['device']}")
-    check(info["vote_state_launches"] > 0 and info["kernel_launches"] > info["vote_state_launches"]
-          and info["device_us"] > 0 and info["nlines"] >= 1,
-          f"cli inspect: frame {info['frame']} launched vote_state "
-          f"{info['vote_state_launches']} times among {info['kernel_launches']} kernel launches")
+    check(info["loop"] == "graph" and info["graph_launches"] == 1
+          and info["kernel_launches"] <= 20 and info["host_reads"] == 1
+          and info["vote_state_launches"] > 0 and info["device_us"] > 0
+          and info["nlines"] >= 1,
+          f"cli inspect: frame {info['frame']} is 1 cudaGraphLaunch, "
+          f"{info['kernel_launches']} cudaLaunchKernel and {info['host_reads']} host read, "
+          f"vote_state {info['vote_state_launches']} times inside the graph")
     print(f"time  cli inspect, frame {info['frame']} of the 4 Hz flight after one warm-up "
-          f"frame, under torch.profiler: kernel_launches {info['kernel_launches']}, device_us "
-          f"{info['device_us']}, wall_ms {info['wall_ms']:.3f}, vote_state_launches "
-          f"{info['vote_state_launches']}, vote_histogram_launches "
+          f"frame, under torch.profiler: graph_launches {info['graph_launches']}, "
+          f"kernel_launches {info['kernel_launches']}, host_reads {info['host_reads']}, "
+          f"device_us {info['device_us']}, wall_ms {info['wall_ms']:.3f}, "
+          f"vote_state_launches {info['vote_state_launches']}, vote_histogram_launches "
           f"{info['vote_histogram_launches']}, nlines {info['nlines']} [{card}]", flush=True)
 
 
@@ -1922,8 +2266,7 @@ def structure_shapes(sh, st, launched, dev):
             Xs, act, half, dx, nxt, _ = p
             n_rem = min(512, int(act.sum()))
             rem = act & (torch.cumsum(act.to(torch.int32), 0) <= n_rem)
-            Xr = _compact_removed(Xs, rem, n_rem).contiguous()
-            live = torch.ones(n_rem, dtype=torch.bool, device=dev)
+            Xr, live = _compact_removed(Xs, rem, n_rem, 512)
             sh.histogram(f"{label}, a {n_rem}-column delta", (Xr, live, half, dx, nxt, nx),
                          c1, c2, timed=True)
         else:
@@ -2312,6 +2655,9 @@ def main() -> None:
     ap.add_argument("--structure-only", action="store_true",
                     help="the kernel checks, the parity stack's f32 drift against the "
                          "oracle and the structure flights only; prints no result lines")
+    ap.add_argument("--graph-only", action="store_true",
+                    help="the kernel checks and the graph step's phase only; prints "
+                         "no result lines")
     ap.add_argument("--ranks-only", action="store_true",
                     help="as --shard-only without the deferred phases: on a host "
                          "with 2 or 4 cards the ranks' collectives run over NCCL")
@@ -2350,7 +2696,13 @@ def main() -> None:
           flush=True)
     earlier = None
     if args.earlier:
-        earlier = _build.load_library(Path(args.earlier).resolve())
+        earlier_src = Path(args.earlier).resolve()
+        earlier = _build.load_library(earlier_src)
+        if "gate" not in earlier_src.read_text():
+            # entries from before the gate: the same arguments without it
+            earlier.gated = False
+            for entry in (earlier.pcs_vote_state, earlier.pcs_vote_histogram):
+                entry.argtypes = entry.argtypes[:-2] + entry.argtypes[-1:]
         print(f"build: the earlier {args.earlier} -> {_build.BuildInfo.path}", flush=True)
 
     # the full-size replay: shipped config, default StaticShapes, 64x64 ToF
@@ -2393,6 +2745,15 @@ def main() -> None:
               flush=True)
         print("one stack only: no result lines", flush=True)
         sys.exit(3)
+    if args.graph_only:
+        kernel_checks(dev, frames[len(frames) // 2], card)
+        k6, _ = counted_run("g6 replay", cfg6, frames, dev, "vote_state", per_frame=True)
+        k4, _ = counted_run("g4 replay", cfg4, frames, dev, "vote_histogram", per_frame=True)
+        pairs, _ = graph_main_path(cfg6, cfg4, frames, dev, k6, k4, card)
+        with tempfile.TemporaryDirectory(prefix="pcs_chip_smoke_") as tmp:
+            graph_phase(cfg6, cfg4, frames, dev, card, tmp, pairs)
+        print("one stack only: no result lines", flush=True)
+        sys.exit(3)
     if args.shard_only or args.ranks_only:
         sh = kernel_checks(dev, frames[len(frames) // 2], card)
         k6, _ = counted_run("g6 replay", cfg6, frames, dev, "vote_state")
@@ -2417,8 +2778,9 @@ def main() -> None:
     # the main path, counted path by path: the shipped g6 replay (lazy,
     # vote_state), the g4 replay (carry, vote_histogram), and a short g6
     # replay at radius 0.015 (NX 261)
-    k6, n_state = counted_run("g6 replay", cfg6, frames, dev, "vote_state")
-    k4, n_hist = counted_run("g4 replay", cfg4, frames, dev, "vote_histogram")
+    k6, n_state = counted_run("g6 replay", cfg6, frames, dev, "vote_state", per_frame=True)
+    k4, n_hist = counted_run("g4 replay", cfg4, frames, dev, "vote_histogram",
+                             per_frame=True)
     short = frames[10:15]
     k6s, _ = counted_run("g6 replay at radius 0.015", cfg6s, short, dev, "vote_state")
 
@@ -2437,21 +2799,23 @@ def main() -> None:
     p6s = replay(cfg6s, short, dev, PLAIN)
     same_extraction(k6s, p6s, "g6 radius 0.015 kernels vs plain on the card")
 
-    k6b = replay(cfg6, frames, dev, KERNELS)
-    check(same_state(k6["state"], k6b["state"]),
-          "g6 replay run twice: bit-identical world state (deterministic)")
+    # the main path as a user drives it: the engine's default, one CUDA graph
+    # a frame (the counted runs above are the eager engine's)
+    pairs, launches = graph_main_path(cfg6, cfg4, frames, dev, k6, k4, card)
+    k6b = pairs["g6 lazy"][0]
 
     def ms_per_frame(run):
         return statistics.median(r["processing_time"] for r in run["records"]) / 1e3
 
     for label, kr, pr, kr2 in (("g6 lazy", k6, p6, k6b), ("g4 carry", k4, p4, None)):
-        extra = f", second kernel run {ms_per_frame(kr2):.3f}" if kr2 else ""
+        extra = f", graph step {ms_per_frame(kr2):.3f}" if kr2 else ""
         print(f"time  replay {label}, {len(frames)} frames, median ms/frame: kernels "
               f"{ms_per_frame(kr):.3f}{extra}, plain {ms_per_frame(pr):.3f} [{card}]",
               flush=True)
 
     # the live node loop at the shipped config, on the default device
     with tempfile.TemporaryDirectory(prefix="pcs_chip_smoke_") as tmp:
+        graph_phase(cfg6, cfg4, frames, dev, card, tmp, pairs)
         log = native_stack(cfg6, frames, k6, tmp, card)
         serve_phase(cfg6, frames, tmp)
         cli_phase(tmp, card)
@@ -2464,7 +2828,6 @@ def main() -> None:
     sources = {"vote_state": "tools/exp_g6_pallas.py:156",
                "vote_histogram": "pointcloud_segmentation_tpu/ops/voting_pallas.py:49"}
     main_shape = {"vote_state": "the full g6 table", "vote_histogram": "g4"}
-    launches = {"vote_state": n_state, "vote_histogram": n_hist}
     # each timed shape's launches: on its replay of the main path, or (set by
     # shard_phase) on rank 0 of its sharded replay
     paths = {("vote_state", 79): k6["shapes"], ("vote_state", 261): k6s["shapes"],
@@ -2479,7 +2842,9 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "pointcloud_segmentation_tpu_torch/csrc/voting.cu",
-            "replaces": sources[name], "launches": launches[name],
+            "replaces": sources[name], "launches": launches[name][0],
+            "open_launches": launches[name][1],
+            "closed_launches": launches[name][0] - launches[name][1],
             "max_abs_err": sh.errs[name], "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],

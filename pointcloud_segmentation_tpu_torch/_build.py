@@ -37,10 +37,10 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # xs, active, n, c1, c2, nb, half_dx, num_x, nxs, best, key, ub, stream
-    "pcs_vote_state": (_P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P),
-    # xs, active, n, c1, c2, nb, half_dx, num_x, nxs, out, stream
-    "pcs_vote_histogram": (_P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P),
+    # xs, active, n, c1, c2, nb, half_dx, num_x, nxs, best, key, ub, gate, stream
+    "pcs_vote_state": (_P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P),
+    # xs, active, n, c1, c2, nb, half_dx, num_x, nxs, out, gate, stream
+    "pcs_vote_histogram": (_P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P),
     # xs, n, c1, c2, nb, half_dx, num_x, xi, yi, stream
     "pcs_vote_bins": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _P),
 }

@@ -14,7 +14,8 @@ Subcommands:
            with the reference match criteria (tests_structure.py analog)
   timing   analyze a processing_time.csv (proc_time_analysis.py analog)
   bag-info per-topic summary of a recorded ROS1 .bag / ROS2 .mcap
-  inspect  run one frame under the profiler: kernel launches and device time
+  inspect  run one frame under the profiler: graph and kernel launches, host
+           reads and device time
            beside the shape and capacity facts
 
 The commands, flags and output are the JAX package's CLI's, with --backend
@@ -299,14 +300,36 @@ def cmd_eval(args) -> int:
 # a warm-up: by then the drone has beams in view
 INSPECT_FRAME = 10
 
+_GRAPH_LAUNCH = ("cudaGraphLaunch", "cuGraphLaunch")
+_KERNEL_LAUNCH = ("cudaLaunchKernel", "cuLaunchKernel")
+# a read of a device value: the copy to pageable host memory waits for its
+# stream (a pinned non-blocking copy does not, and is not a read)
+_HOST_READ = ("cudaStreamSynchronize",)
+
+
+def launch_counts(events) -> dict:
+    """The CUDA runtime's rows among a profiler's `key_averages()`: graph
+    launches (a replayed frame is one), kernel launches made outside a graph
+    (the kernels inside a replay are not launched by the host), and host
+    reads."""
+    def count(prefixes):
+        return sum(e.count for e in events if e.key.startswith(prefixes))
+
+    return {"graph_launches": count(_GRAPH_LAUNCH),
+            "kernel_launches": count(_KERNEL_LAUNCH),
+            "host_reads": count(_HOST_READ)}
+
 
 def cmd_inspect(args) -> int:
     """Run one real frame under torch.profiler and print what it cost beside
-    the shape and capacity facts — the profiling/observability hook.  Eager
-    PyTorch has no compiled step to ask for FLOPs and bytes, so the frame's
-    kernel launches (the profiler's CUDA-runtime launch events), its device
-    time (the kernels' own time, summed) and its wall time (with the profiler
-    on) take their place.  On the CPU the card's fields are left out."""
+    the shape and capacity facts — the profiling/observability hook.  The
+    port has no compiler to ask for FLOPs and bytes, so the frame's CUDA
+    graph launches and kernel launches made outside a graph, apart
+    (`launch_counts`), its host reads, its device time (the kernels' own
+    time, summed, those inside the replayed graph included) and its wall
+    time (with the profiler on) take their place.  The engine's default
+    loop runs (one graph a frame on a card); ``--loop eager`` profiles the
+    eager frame instead.  On the CPU the card's fields are left out."""
     import contextlib
     import time
 
@@ -324,7 +347,7 @@ def cmd_inspect(args) -> int:
     poses = trajectory_poses(wps, hz=4.0, velocity=0.25)[: INSPECT_FRAME + 1]
     frames = simulate_trajectory(scene, poses, TofSpec(noise_frac=0.002),
                                  seed=args.seed)
-    eng = SegmentationEngine(cfg, device=args.device)
+    eng = SegmentationEngine(cfg, device=args.device, loop=args.loop)
     on_card = eng.device.type == "cuda"
 
     def profiler():
@@ -332,9 +355,12 @@ def cmd_inspect(args) -> int:
             return contextlib.nullcontext()
         return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
-    # the warm-up frame pays the process's lazy start-up, the profiler's too
+    # the profiler's lazy start-up first (its tracing is on before the graph
+    # is captured), then the warm-up frame, which pays the process's and
+    # captures the graph outside any profile
     with profiler():
-        eng.run_replay(frames[-2:-1])
+        pass
+    eng.run_replay(frames[-2:-1])
     V.vote_state.launches = V.vote_histogram.launches = 0
     with profiler() as prof:
         t0 = time.perf_counter()
@@ -342,11 +368,10 @@ def cmd_inspect(args) -> int:
         if on_card:
             torch.cuda.synchronize(eng.device)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = device_us = None
+    counts, device_us = {}, None
     if on_card:
         events = prof.key_averages()
-        launches = sum(e.count for e in events
-                       if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+        counts = launch_counts(events)
         # device rows only: a host row's device time is its kernels' time
         # over again
         device_us = sum(getattr(e, "self_device_time_total",
@@ -362,8 +387,11 @@ def cmd_inspect(args) -> int:
         "max_world_segments": cfg.shapes.max_world_segments,
         "frame": INSPECT_FRAME,
         "nlines": rec["nblines"],
+        "loop": eng.loop,
         "wall_ms": wall_ms,
-        "kernel_launches": launches,
+        "graph_launches": counts.get("graph_launches"),
+        "kernel_launches": counts.get("kernel_launches"),
+        "host_reads": counts.get("host_reads"),
         "device_us": device_us,
         "vote_state_launches": V.vote_state.launches if on_card else None,
         "vote_histogram_launches": V.vote_histogram.launches if on_card else None,
@@ -543,12 +571,16 @@ def main(argv=None) -> int:
                     help="HTTP port for --follow (0 = ephemeral)")
     pv.set_defaults(fn=cmd_viz)
 
-    pi = sub.add_parser("inspect", help="one frame under the profiler: kernel "
-                                        "launches, device time, shape facts")
+    pi = sub.add_parser("inspect", help="one frame under the profiler: graph and "
+                                        "kernel launches, host reads, device time, "
+                                        "shape facts")
     _add_common(pi)
     pi.add_argument("--scene", default="obs_tests", choices=SCENES,
                     help="simulated world whose default flight gives the frame")
     pi.add_argument("--seed", type=int, default=0)
+    pi.add_argument("--loop", choices=("graph", "eager"), default=None,
+                    help="the frame's loop (default: the engine's, one CUDA "
+                         "graph a frame on a card, eager on the CPU)")
     pi.set_defaults(fn=cmd_inspect)
 
     pt = sub.add_parser("timing", help="analyze a processing_time.csv")

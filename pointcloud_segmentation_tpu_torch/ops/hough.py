@@ -8,15 +8,33 @@ reach the global max.  The voting itself goes through ops/voting.py: the
 CUDA kernels for CUDA tensors, the plain versions for CPU tensors (or for
 CUDA tensors, when a caller passes ``voting=PLAIN`` to compare the two).
 
-JAX's ``lax.while_loop``/``switch`` become a host loop.  Each round reads one
-scalar (the update branch, which also decides whether the loop goes on) and,
-in a lazy incremental round, the suspect count that picks the re-exam tier.
+The loop is the JAX package's: one function, `_round`, is the body of the
+JAX ``lax.while_loop``, masked by a device flag ``live`` (the loop's
+condition), so a round that is not live changes nothing.  Two loops run the
+rounds, chosen by the caller:
+  * ``loop="graph"``: `round_count(cfg)` rounds with no host read, the JAX
+    loop's fixed-capacity form and what pipeline.make_process_frame
+    captures into one CUDA graph (on the CPU it runs as it is, so the CPU
+    tests run the captured code).  A round's ``lax.switch`` branches (keep /
+    increment or subtract / rebuild, and the lazy re-exam's tier) are all
+    issued, each kernel launch gated on the card by its branch
+    (ops/voting.py), and the result is picked by ``torch.where``; the
+    removed points are compacted to a fixed `_SUB_CHUNK` columns with a
+    live-column mask.
+  * ``loop="eager"``: the same rounds until one ends the loop.  A round
+    reads its branch and removed count on the host (and, in a lazy
+    incremental round, its suspect count) and issues only that branch, its
+    compaction sized to the removed points: the dead columns and untaken
+    branches of the graph loop count nothing, so both loops give the same
+    bits.  The plain voting functions (whose bincount reads the host) and
+    a shard (whose collectives are not captured) take this one; asking for
+    "graph" with either raises.
 
 With an `AxisGroup` over the direction axis (the counterpart of the JAX
 ``dir_axis``) the direction table is one rank's contiguous slice of the
 sphere and the cloud is replicated: each round gathers every rank's winner and its table rows in one
-``all_gather`` of a few int32 words, and a lazy incremental round gathers the
-ranks' best counts once more for the suspect bound.  Everything after the
+``all_gather`` of a few int32 words, and a lazy incremental round gathers
+the ranks' best counts once more for the suspect bound.  Everything after the
 winner is computed from replicated tensors, so every rank takes the same
 branches and makes the same collectives.
 
@@ -214,28 +232,37 @@ def _pad_dirs_to_tile(dirs, c1, c2):
     return tuple(torch.cat([t, t[:1].expand(pad, 3)]) for t in (dirs, c1, c2))
 
 
-def _compact_removed(Xs, removed, n_rem: int):
-    """The n_rem removed points, in index order, as (n_rem, 3) rows.  The one
-    compaction that the carry subtract and the lazy decrement share, so both
-    bin the removed points identically.  The JAX package pads this to
-    _SUB_CHUNK static columns; here n_rem is known on the host (it is read
-    with the round's branch), and the dead columns would count nothing."""
+def _compact_removed(Xs, removed, n_rem, sub_chunk: int):
+    """Gather the removed points into `sub_chunk` rows, in index order, with
+    the JAX package's fixed width: returns (Xr (sub_chunk, 3), col_live
+    (sub_chunk,) bool), col_live = arange(sub_chunk) < n_rem, where n_rem is
+    the removed count (a 0-dim device tensor, or an int).  A dead column
+    holds point 0.  The one compaction that the carry subtract and the lazy
+    decrement share, so both bin the removed points identically.
+
+    A removed point past sub_chunk (n_rem > sub_chunk: the round takes the
+    rebuild and discards this) is placed in the sentinel column sub_chunk,
+    which is cut off: JAX drops an out-of-range scatter index, where
+    `index_copy_` on a card would fault."""
     N = removed.shape[0]
+    dev = Xs.device
     pos = torch.cumsum(removed.to(torch.int32), 0, dtype=torch.int32) - 1
-    pos = torch.where(removed & (pos < n_rem), pos, n_rem)
-    perm = torch.zeros(n_rem + 1, dtype=torch.int64, device=Xs.device)
-    perm.index_copy_(0, pos.to(torch.int64),
-                     torch.arange(N, dtype=torch.int64, device=Xs.device))
-    return Xs[perm[:n_rem]]
+    pos = torch.where(removed, torch.clamp_max(pos, sub_chunk), sub_chunk)
+    perm = torch.zeros(sub_chunk + 1, dtype=torch.int64, device=dev)
+    perm.index_copy_(0, pos.to(torch.int64), torch.arange(N, dtype=torch.int64, device=dev))
+    col_live = torch.arange(sub_chunk, device=dev) < n_rem
+    return Xs[perm[:sub_chunk]], col_live
 
 
-def _removed_cell_keys(Xs, c1, c2, half, dx, num_x, removed, n_rem: int,
+def _removed_cell_keys(Xs, c1, c2, half, dx, num_x, removed, n_rem, sub_chunk: int,
                        num_x_static):
-    """(B, n_rem) flat cell keys x*NX + y of the removed points, binned by
-    ops/voting.vote_bins, the expression the kernels use."""
-    xt, yt = V.vote_bins(_compact_removed(Xs, removed, n_rem), c1, c2,
-                         half, dx, num_x)
-    return xt * num_x_static + yt
+    """(B, sub_chunk) flat cell keys x*NX + y of the removed points, binned by
+    ops/voting.vote_bins, the expression the kernels use; a dead column holds
+    the sentinel NX*NX, which matches no direction's key."""
+    Xr, col_live = _compact_removed(Xs, removed, n_rem, sub_chunk)
+    xt, yt = V.vote_bins(Xr, c1, c2, half, dx, num_x)
+    keys = xt * num_x_static + yt
+    return torch.where(col_live[None, :], keys, num_x_static * num_x_static)
 
 
 def scatter_rows(dst, idx, rows):
@@ -281,10 +308,52 @@ def vote_inputs(Xs, half, dx):
             dx.to(torch.float32))
 
 
+class _LoopState(NamedTuple):
+    """What one round of the extraction hands the next (the JAX package's
+    `_LoopState`, with its `stop` folded into `live`)."""
+
+    it: torch.Tensor          # int32: rounds run so far
+    active: torch.Tensor      # (N,) bool
+    vstate: tuple             # carry: (votes (B, NX, NX), row_max (B,));
+                              # lazy: (best (B,), key (B,), ub (B,))
+    nlines: torch.Tensor      # int32
+    nout: torch.Tensor        # int32: segments written
+    fail: torch.Tensor        # bool: the b.x == 0 abort
+    segs: SegmentBatch
+    live: torch.Tensor        # bool: this round runs (the JAX loop's cond)
+
+
+LOOPS = ("eager", "graph")
+
+
+def iteration_bound(cfg: PipelineConfig) -> int:
+    """The JAX loop's `it_bound`: with opt_nlines > 0 every round either adds
+    one to nlines or ends the loop, so opt_nlines + 1 is itself a bound and
+    shapes.max_iters must not cut a larger opt_nlines short."""
+    return (max(cfg.shapes.max_iters, cfg.opt_nlines + 1)
+            if cfg.opt_nlines > 0 else cfg.shapes.max_iters)
+
+
+def round_count(cfg: PipelineConfig) -> int:
+    """The rounds the graph loop unrolls: every round that lets the next
+    one run has proceeded (ok3) and so added one to nlines, and a round runs
+    only while nlines < opt_nlines, so at most opt_nlines rounds run when
+    opt_nlines > 0 (10 at the shipped config); else the iteration bound.
+    tests/test_torch_graph_loop.py holds a frame to it."""
+    it_bound = iteration_bound(cfg)
+    return min(it_bound, cfg.opt_nlines) if cfg.opt_nlines > 0 else it_bound
+
+
+def _is_plain(voting: Voting) -> bool:
+    return (voting.vote_state is V.vote_state_plain
+            or voting.vote_histogram is V.vote_histogram_plain)
+
+
 def extract_lines(points: torch.Tensor, valid: torch.Tensor,
                   cfg: PipelineConfig, dir_tables: tuple | None = None,
                   voting: Voting = KERNELS,
-                  shard: AxisGroup | None = None) -> HoughResult:
+                  shard: AxisGroup | None = None,
+                  loop: str = "eager") -> HoughResult:
     """Run the iterative Hough extraction on one pre-filtered cloud.
 
     Args:
@@ -294,13 +363,28 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
       cfg: the pipeline config; its voting_mode picks carry or lazy.
       dir_tables: (dirs, c1, c2) on the points' device, as
         `direction_tables(granularity, device, points.dtype)` gives them;
-        built from the config when None.
+        built from the config when None (which a graph capture cannot do:
+        it copies the table from the host).
       voting: the voting functions, KERNELS (default) or PLAIN.
       shard: None for one rank.  Else `dir_tables` is this rank's slice of
         the table (every rank's of one length, as parallel/sharding.py cuts it),
         `points` and `valid` are the same on every rank, and every rank of
         the shard's group makes this call together.
+      loop: what runs the rounds (module docstring): "eager" reads the
+        host once a round (twice in a lazy incremental round) and issues
+        only the branch it read; "graph" runs `round_count(cfg)` masked
+        rounds with no host read, the form a CUDA graph captures.  "graph"
+        raises with the plain voting functions or a shard.
     """
+    if loop not in LOOPS:
+        raise ValueError(f"loop must be one of {LOOPS}, got {loop!r}")
+    if loop == "graph" and _is_plain(voting):
+        raise ValueError("loop='graph' cannot take the plain voting functions: "
+                         "torch.bincount reads the host to size its output, "
+                         "which a CUDA graph cannot capture; use loop='eager'")
+    if loop == "graph" and shard is not None:
+        raise ValueError("loop='graph' cannot take a shard: its collectives "
+                         "are not captured; use loop='eager'")
     dev = points.device
     N = points.shape[0]
     L = cfg.max_lines
@@ -323,14 +407,15 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
     cells = NX * NX
 
     def const(v):
-        # device scalars: a Python float divisor on a CUDA tensor becomes a
-        # reciprocal product, which moves bins and integer truncations
+        # device scalars made on the device (a fill, which a graph captures):
+        # a Python float divisor on a CUDA tensor becomes a reciprocal
+        # product, which moves bins and integer truncations
         return torch.full((), v, dtype=dt, device=dev)
 
     dx = const(cfg.opt_dx)
     dv = const(cfg.diag_voxel)
     min_nb_denom = const(cfg.rad_2_leaf_ratio * (2 * cfg.diag_voxel) ** 2)
-    rs = torch.tensor(cfg.radius_sizes, dtype=dt, device=dev)
+    rs = torch.stack([const(r) for r in cfg.radius_sizes])
     rs_max = max(cfg.radius_sizes)
 
     Xs, shift, d, half, num_x = center_cloud(points, valid, dx)
@@ -344,13 +429,12 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
     sub_chunk = min(_SUB_CHUNK, N)
     s_cap = max(_VOTE_TILE, (min(B, _SUSPECT_CAP) // _VOTE_TILE) * _VOTE_TILE)
     s_tier = min(s_cap, 2 * _VOTE_TILE)
-    it_bound = (max(cfg.shapes.max_iters, cfg.opt_nlines + 1)
-                if cfg.opt_nlines > 0 else cfg.shapes.max_iters)
+    it_bound = iteration_bound(cfg)
 
-    def vstate_init(active0):
+    def vstate_init(active0, gate=None):
         if lazy:
-            return voting.vote_state(Xv, active0, c1, c2, half32, dx32, num_x, NX)
-        v0 = voting.vote_histogram(Xv, active0, c1, c2, half32, dx32, num_x, NX)
+            return voting.vote_state(Xv, active0, c1, c2, half32, dx32, num_x, NX, gate)
+        v0 = voting.vote_histogram(Xv, active0, c1, c2, half32, dx32, num_x, NX, gate)
         return v0, v0.amax(dim=(1, 2))
 
     def vstate_winner(vs):
@@ -367,59 +451,106 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
         cell_win = _first_true(_row(votes, b_win).reshape(cells) == M)
         return M, b_win, cell_win
 
-    def exam(vs, suspect, cap, active_next):
-        """Recompute (best, key, ub) of <= cap suspect directions."""
+    def exam(vs, suspect, cap, active_next, gate):
+        """Recompute (best, key, ub) of <= cap suspect directions; the kernel
+        votes only when `gate` is open."""
         best, key, ub = vs
         spos = torch.cumsum(suspect.to(torch.int32), 0, dtype=torch.int32) - 1
-        spos = torch.where(suspect, spos, cap).to(torch.int64)
+        # suspects past cap (this tier is not the round's) go to the dropped
+        # sentinel too: an index past the buffer would fault on a card
+        spos = torch.where(suspect, torch.clamp_max(spos, cap), cap).to(torch.int64)
         idx = torch.full((cap + 1,), B, dtype=torch.int64, device=dev)
         idx.index_copy_(0, spos, torch.arange(B, device=dev))
         idx = idx[:cap]
         idx_c = torch.clamp_max(idx, B - 1)
         bs, ks, us = voting.vote_state(Xv, active_next, c1[idx_c].contiguous(),
-                                       c2[idx_c].contiguous(), half32, dx32, num_x, NX)
+                                       c2[idx_c].contiguous(), half32, dx32, num_x, NX,
+                                       gate)
         return (scatter_rows(best, idx, bs), scatter_rows(key, idx, ks),
                 scatter_rows(ub, idx, us))
 
-    def vstate_update(vs, branch, m2, n_rem: int, active_next):
-        """branch 1 = incremental removal of the n_rem points of m2; 2 = exact
-        rebuild (more than sub_chunk points removed)."""
+    def pick(flag, a, b):
+        """a where the 0-dim bool `flag` holds, else b, field by field."""
+        return tuple(torch.where(flag, x, y) for x, y in zip(a, b))
+
+    def vstate_update(vs, branch, m2, n_rem, active_next):
+        """The JAX `lax.switch(branch, [keep, increment/subtract, rebuild])`
+        with every branch issued: branch 0 keeps the state (the loop is
+        ending), 1 removes the n_rem points of m2 incrementally, 2 rebuilds
+        it from active_next (more than sub_chunk points removed).  Each
+        kernel launch is gated by its branch, so an untaken branch votes
+        nothing; its torch ops run and are discarded by `torch.where`."""
+        inc = branch == 1
+        if lazy:
+            best, key, ub = vs
+            keys_r = _removed_cell_keys(Xv, c1, c2, half32, dx32, num_x, m2, n_rem,
+                                        sub_chunk, NX)
+            best_d = best - (keys_r == key[:, None]).sum(dim=1, dtype=torch.int32)
+            M_lb = best_d.max()
+            if shard is not None:
+                M_lb = shard.max(M_lb)
+            suspect = ub >= M_lb                 # other cells could win
+            n_sus = suspect.sum()
+            # the suspect tier (JAX `lax.switch(sel, [s_tier, s_cap, rebuild])`)
+            over = n_sus > s_cap
+            rebuild = (branch == 2) | (inc & over)
+            dec = (best_d, key, ub)
+            g_cap = inc & ~over
+            if s_tier < s_cap:
+                g_tier = inc & (n_sus <= s_tier)
+                g_cap = g_cap & ~g_tier
+                out = pick(g_tier, exam(dec, suspect, s_tier, active_next, g_tier), vs)
+            else:
+                out = vs
+            out = pick(g_cap, exam(dec, suspect, s_cap, active_next, g_cap), out)
+            return pick(rebuild, vstate_init(active_next, rebuild), out)
+        votes, _ = vs
+        Xr, col_live = _compact_removed(Xv, m2, n_rem, sub_chunk)
+        delta = voting.vote_histogram(Xr.contiguous(), col_live, c1, c2, half32, dx32,
+                                      num_x, NX, inc)
+        rebuild = branch == 2
+        rebuilt = voting.vote_histogram(Xv, active_next, c1, c2, half32, dx32, num_x,
+                                        NX, rebuild)
+        vn = torch.where(rebuild, rebuilt, torch.where(inc, votes - delta, votes))
+        return vn, vn.amax(dim=(1, 2))
+
+    def vstate_update_eager(vs, branch: int, m2, n_rem: int, active_next):
+        """`vstate_update`'s branch 1 or 2 alone, for the eager loop, which
+        has read the branch and n_rem on the host: the removed points
+        compacted to n_rem columns, the lazy tier picked by a host read of
+        the suspect count."""
         if branch == 2:
             return vstate_init(active_next)
         if lazy:
             best, key, ub = vs
-            keys_r = _removed_cell_keys(Xv, c1, c2, half32, dx32, num_x, m2, n_rem, NX)
-            best = best - (keys_r == key[:, None]).sum(dim=1, dtype=torch.int32)
-            M_lb = best.max()
+            keys_r = _removed_cell_keys(Xv, c1, c2, half32, dx32, num_x, m2, n_rem,
+                                        n_rem, NX)
+            best_d = best - (keys_r == key[:, None]).sum(dim=1, dtype=torch.int32)
+            M_lb = best_d.max()
             if shard is not None:
                 M_lb = shard.max(M_lb)
             suspect = ub >= M_lb                 # other cells could win
             n_sus = int(suspect.sum())           # host read: picks the tier
-            if n_sus <= s_tier:
-                return exam((best, key, ub), suspect, s_tier, active_next)
-            if n_sus <= s_cap:
-                return exam((best, key, ub), suspect, s_cap, active_next)
+            for cap in (s_tier, s_cap):
+                if n_sus <= cap:
+                    return exam((best_d, key, ub), suspect, cap, active_next, None)
             return vstate_init(active_next)
         votes, _ = vs
-        Xr = _compact_removed(Xv, m2, n_rem).contiguous()
-        all_live = torch.ones(n_rem, dtype=torch.bool, device=dev)
-        vn = votes - voting.vote_histogram(Xr, all_live, c1, c2, half32, dx32,
+        Xr, col_live = _compact_removed(Xv, m2, n_rem, n_rem)
+        vn = votes - voting.vote_histogram(Xr.contiguous(), col_live, c1, c2, half32, dx32,
                                            num_x, NX)
         return vn, vn.amax(dim=(1, 2))
 
-    active = valid & ~precheck_fail
-    nlines = torch.zeros((), dtype=torch.int32, device=dev)
-    nout = torch.zeros((), dtype=torch.int32, device=dev)
-    fail = torch.zeros((), dtype=torch.bool, device=dev)
-    segs = empty_segments(L, N, dt, dev)
     slot_iota = torch.arange(L, device=dev)
     P2 = Xs + shift                                   # inliers in input frame
 
-    go = bool(active.sum() > 1)       # the loop's condition at round 0
-    vstate = vstate_init(active) if go else None
-    it = 0
-    while go:
-        M, b_win, cell_win = vstate_winner(vstate)
+    def _round(s: _LoopState, eager: bool = False):
+        """One round of the JAX loop's body, masked by s.live: a round that
+        is not live changes nothing, so the graph loop may run it.  Returns
+        (the next state, its branch): the branch is a device tensor, or with
+        `eager` the host int the round read to size its update (0: the loop
+        ends, and the update is skipped)."""
+        M, b_win, cell_win = vstate_winner(s.vstate)
         b0, c1row, c2row = _row(dirs, b_win), _row(c1, b_win), _row(c2, b_win)
         if shard is not None:
             cell_win, b0, c1row, c2row = shard.winner(
@@ -432,6 +563,7 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
 
         # refinement #1: the direction is renormalised first, as the oracle's
         # points_close_to_line does, and the sqrt'd distance compared to dx
+        active = s.active
         b0u = b0 / torch.sqrt((b0 * b0).sum())
         m1 = active & (torch.sqrt(_line_distance2(Xs, a0, b0u)) <= dx)
         ok0 = m1.any()
@@ -495,15 +627,16 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
         min_nb = (2.0 * closest * seg_len / min_nb_denom).to(torch.int32)
         accept = gate_r & (pca_coeff > cfg.min_pca_coeff) & (nv > min_nb)
 
-        failx = ok3 & bx_zero
-        proceed = ok3 & ~bx_zero
-        write = proceed & accept & (nout < L)
-        sel = (slot_iota == nout) & write
+        failx = s.live & ok3 & bx_zero
+        proceed = s.live & ok3 & ~bx_zero
+        write = proceed & accept & (s.nout < L)
+        sel = (slot_iota == s.nout) & write
 
         def upd(arr, val):
-            s = sel.reshape((L,) + (1,) * (arr.dim() - 1))
-            return torch.where(s, val, arr)
+            m = sel.reshape((L,) + (1,) * (arr.dim() - 1))
+            return torch.where(m, val, arr)
 
+        segs = s.segs
         segs = SegmentBatch(
             a=upd(segs.a, a_w), b=upd(segs.b, bc),
             t_min=upd(segs.t_min, t_min), t_max=upd(segs.t_max, t_max),
@@ -514,30 +647,56 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
             point_mask=upd(segs.point_mask, m2),
             valid=upd(segs.valid, True))
 
+        counted = (s.live & ok3).to(torch.int32)   # nlines counts gate failures (h:259)
         active_next = active & ~m2
-        # skip the update when this round is the last: the loop is about to
-        # exit and nothing reads the voting state after it
-        ending = (active_next.sum() <= 1) | (it + 1 >= it_bound)
+        # The JAX loop's cond for the next round: this round proceeded and is
+        # not the last.  The update is skipped (branch 0) in a last round, as
+        # nothing reads the voting state after it.
+        ending = (active_next.sum() <= 1) | (s.it + 1 >= it_bound)
         if cfg.opt_nlines > 0:
-            ending = ending | (nlines + ok3.to(torch.int32) >= cfg.opt_nlines)
-        branch_t = torch.where(proceed & ~ending,
-                               torch.where(nv <= sub_chunk, 1, 2), 0)
+            ending = ending | (s.nlines + counted >= cfg.opt_nlines)
+        live_next = proceed & ~ending
+        branch = torch.where(live_next, torch.where(nv <= sub_chunk, 1, 2), 0)
+        if eager:
+            # host read, once a round: the branch and the removed count
+            branch, n_rem = torch.stack([branch, nv]).tolist()
+            vstate = (s.vstate if branch == 0 else
+                      vstate_update_eager(s.vstate, branch, m2, n_rem, active_next))
+        else:
+            vstate = vstate_update(s.vstate, branch, m2, nv, active_next)
+        return _LoopState(
+            it=s.it + s.live.to(torch.int32),
+            active=torch.where(proceed, active_next, active),
+            vstate=vstate,
+            nlines=s.nlines + counted,
+            nout=s.nout + write.to(torch.int32),
+            fail=s.fail | failx,
+            segs=segs,
+            live=live_next), branch
 
-        nlines = nlines + ok3.to(torch.int32)      # counts gate failures (h:259)
-        nout = nout + write.to(torch.int32)
-        fail = fail | failx
-        active = torch.where(proceed, active_next, active)
-        it += 1
+    active0 = valid & ~precheck_fail
+    live0 = active0.sum() > 1          # the loop's condition at round 0
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
 
-        # The next round runs exactly when this round proceeded and is not
-        # the last one, i.e. when branch != 0 (host read, once per round).
-        branch, n_rem = torch.stack([branch_t, nv]).tolist()
-        go = branch != 0
-        if go:
-            vstate = vstate_update(vstate, branch, m2, n_rem, active_next)
+    def start(vstate):
+        return _LoopState(it=zero, active=active0, vstate=vstate, nlines=zero,
+                          nout=zero, fail=torch.zeros((), dtype=torch.bool, device=dev),
+                          segs=empty_segments(L, N, dt, dev), live=live0)
 
-    nlines = torch.where(fail, 0, nlines).to(torch.int32)
+    if loop == "graph":
+        s = start(vstate_init(active0, live0))
+        for _ in range(round_count(cfg)):
+            s, _ = _round(s)
+    else:
+        s = start(None)
+        if bool(live0):                # host read: round 0's condition
+            s = s._replace(vstate=vstate_init(active0))
+            branch = 1
+            while branch != 0:
+                s, branch = _round(s, eager=True)
+
+    nlines = torch.where(s.fail, 0, s.nlines).to(torch.int32)
     status = torch.where(degenerate, 1,
                          torch.where(dx_too_large, 2,
-                                     torch.where(fail, 3, 0))).to(torch.int32)
-    return HoughResult(segments=segs, nlines=nlines, status=status)
+                                     torch.where(s.fail, 3, 0))).to(torch.int32)
+    return HoughResult(segments=s.segs, nlines=nlines, status=status)

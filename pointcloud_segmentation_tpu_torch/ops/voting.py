@@ -7,6 +7,24 @@ wrapper counts its kernel launches in a plain integer attribute
 (``vote_state.launches``, ``vote_histogram.launches``), so a run can show that
 it went through the kernels.
 
+The gate.  `vote_state` and `vote_histogram` take ``gate``: None (the kernel
+votes), or one value on the card that the kernel reads there; at 0 it votes
+nothing and writes nothing, so its outputs hold whatever `torch.empty` gave
+them and the caller discards them (the graph loop of ops/hough.py issues
+every branch of a round this way).  The plain versions read the gate on the
+host and return zeros when it is closed.  The counts of a wrapper:
+  * ``launches``, ``gated_launches``: launches made, and those of them given
+    a gate (closed or open);
+  * ``captured``, ``captured_gated``: the same, recorded into a CUDA graph
+    while a stream captured; the graph's owner adds them to ``launches`` and
+    ``gated_launches`` at each replay (pipeline.FrameStep);
+  * `open_launches(fn)`: the launches that voted, the ungated ones and the
+    gated ones whose gate read nonzero, which only the card knows: a gated
+    launch adds its gate's truth to a device counter of its own, in the
+    graph too, and `open_launches` reads it.  `reset_counts()` sets the
+    launch counts and the device counts to 0 (``captured`` stays: it
+    describes graphs already made).
+
 Shapes and types at every public function:
   Xs (N, 3) float32 shifted coordinates; active (N,) bool;
   c1, c2 (B, 3) float32 plane bases; half, dx 0-dim float32 tensors;
@@ -77,7 +95,16 @@ def _state_of(counts):
     return best.to(torch.int32), key.to(torch.int32), ub.to(torch.int32)
 
 
-def vote_state_plain(Xs, active, c1, c2, half, dx, num_x, num_x_static):
+def _gate_closed(gate) -> bool:
+    """A plain version's reading of the gate: one host read (a sync on a
+    card), which is why no plain version is captured into a graph."""
+    return gate is not None and not bool(gate)
+
+
+def vote_state_plain(Xs, active, c1, c2, half, dx, num_x, num_x_static, gate=None):
+    if _gate_closed(gate):
+        z = torch.zeros(c1.shape[0], dtype=torch.int32, device=Xs.device)
+        return z, z.clone(), z.clone()
     Xa = Xs[active]
     outs = [_state_of(_tile_counts(Xa, c1[i:i + _TILE], c2[i:i + _TILE],
                                    half, dx, num_x, num_x_static))
@@ -88,8 +115,11 @@ def vote_state_plain(Xs, active, c1, c2, half, dx, num_x, num_x_static):
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
-def vote_histogram_plain(Xs, active, c1, c2, half, dx, num_x, num_x_static):
+def vote_histogram_plain(Xs, active, c1, c2, half, dx, num_x, num_x_static,
+                         gate=None):
     nxs = num_x_static
+    if _gate_closed(gate):
+        return torch.zeros((c1.shape[0], nxs, nxs), dtype=torch.int32, device=Xs.device)
     Xa = Xs[active]
     parts = [_tile_counts(Xa, c1[i:i + _TILE], c2[i:i + _TILE],
                           half, dx, num_x, nxs)
@@ -144,17 +174,73 @@ def _launch_args(Xs, half, dx, num_x):
     return half_dx, nx, stream
 
 
+def _gate_int32(gate, dev):
+    """The gate as the (1,) int32 tensor the kernel reads, or None."""
+    if gate is None:
+        return None
+    if gate.device != dev or gate.numel() != 1:
+        raise ValueError(f"gate must be one value on {dev}, got {tuple(gate.shape)} "
+                         f"on {gate.device}")
+    return gate.reshape(1).to(torch.int32)
+
+
+def _count(fn, gate) -> None:
+    """One launch of fn's kernel, or one captured into a graph, with its
+    (1,) int32 gate or None (see the module's docstring)."""
+    gated = gate is not None
+    capturing = torch.cuda.is_current_stream_capturing()
+    if gated:
+        opened = fn.opened.get(gate.device)
+        if opened is None:
+            if capturing:
+                # made inside a capture it would be the graph's, and refilled
+                # with 0 at every replay
+                raise RuntimeError(f"{fn.__name__}: a gated launch captured before any "
+                                   f"on {gate.device}; launch once outside the capture")
+            opened = fn.opened[gate.device] = torch.zeros(
+                1, dtype=torch.int64, device=gate.device)
+        opened.add_(gate != 0)
+    if capturing:
+        fn.captured += 1
+        fn.captured_gated += gated
+    else:
+        fn.launches += 1
+        fn.gated_launches += gated
+
+
+def open_launches(fn) -> int:
+    """fn's launches that voted since the last `reset_counts()`: the ungated
+    ones and the gated ones whose gate read nonzero on the card.  Reads the
+    card (after a synchronise of each device counted on)."""
+    opened = 0
+    for dev, t in fn.opened.items():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        opened += int(t.item())
+    return fn.launches - fn.gated_launches + opened
+
+
+def reset_counts() -> None:
+    """Both wrappers' launch counts to 0, the device counters in place, so
+    a captured graph goes on adding to them."""
+    for fn in (vote_state, vote_histogram):
+        fn.launches = fn.gated_launches = 0
+        for t in fn.opened.values():
+            t.zero_()
+
+
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def vote_state(Xs, active, c1, c2, half, dx, num_x, num_x_static):
+def vote_state(Xs, active, c1, c2, half, dx, num_x, num_x_static, gate=None):
     """Per-direction (best count, first flat cell at it, max count over every
     other cell), each (B,) int32: the values of ops/hough.py
-    `_vote_state_tiles`.  The flat cell is x*NX + y."""
+    `_vote_state_tiles`.  The flat cell is x*NX + y.  `gate`: see the
+    module's docstring."""
     if not Xs.is_cuda:
-        return vote_state_plain(Xs, active, c1, c2, half, dx, num_x, num_x_static)
+        return vote_state_plain(Xs, active, c1, c2, half, dx, num_x, num_x_static, gate)
     from .._build import load_library
 
     _check_cuda_args(Xs, active, c1, c2, half, dx, num_x, num_x_static)
@@ -162,25 +248,30 @@ def vote_state(Xs, active, c1, c2, half, dx, num_x, num_x_static):
     best, key, ub = (torch.empty(B, dtype=torch.int32, device=Xs.device)
                      for _ in range(3))
     half_dx, nx, stream = _launch_args(Xs, half, dx, num_x)
+    g = _gate_int32(gate, Xs.device)
+    gate_ptr = None if g is None else g.data_ptr()
     err = load_library().pcs_vote_state(
         Xs.data_ptr(), active.data_ptr(), N, c1.data_ptr(), c2.data_ptr(), B,
         half_dx.data_ptr(), nx.data_ptr(), num_x_static,
-        best.data_ptr(), key.data_ptr(), ub.data_ptr(), stream)
+        best.data_ptr(), key.data_ptr(), ub.data_ptr(), gate_ptr, stream)
     _raise_on(err, "vote_state")
-    vote_state.launches += 1
+    _count(vote_state, g)
     return best, key, ub
 
 
-vote_state.launches = 0
+vote_state.launches = vote_state.gated_launches = 0
+vote_state.captured = vote_state.captured_gated = 0
+vote_state.opened = {}      # device -> (1,) int64: gated launches that voted
 
 
-def vote_histogram(Xs, active, c1, c2, half, dx, num_x, num_x_static):
+def vote_histogram(Xs, active, c1, c2, half, dx, num_x, num_x_static, gate=None):
     """(B, NX, NX) int32 exact vote counts of the active points: the values of
     ops/hough.py `_vote_histogram` (and, on gathered points, of
-    `_vote_histogram_delta`) and of `vote_histogram_pallas`."""
+    `_vote_histogram_delta`) and of `vote_histogram_pallas`.  `gate`: see
+    the module's docstring."""
     if not Xs.is_cuda:
         return vote_histogram_plain(Xs, active, c1, c2, half, dx, num_x,
-                                    num_x_static)
+                                    num_x_static, gate)
     from .._build import load_library
 
     _check_cuda_args(Xs, active, c1, c2, half, dx, num_x, num_x_static)
@@ -188,15 +279,20 @@ def vote_histogram(Xs, active, c1, c2, half, dx, num_x, num_x_static):
     out = torch.empty((B, num_x_static, num_x_static), dtype=torch.int32,
                       device=Xs.device)
     half_dx, nx, stream = _launch_args(Xs, half, dx, num_x)
+    g = _gate_int32(gate, Xs.device)
+    gate_ptr = None if g is None else g.data_ptr()
     err = load_library().pcs_vote_histogram(
         Xs.data_ptr(), active.data_ptr(), N, c1.data_ptr(), c2.data_ptr(), B,
-        half_dx.data_ptr(), nx.data_ptr(), num_x_static, out.data_ptr(), stream)
+        half_dx.data_ptr(), nx.data_ptr(), num_x_static, out.data_ptr(), gate_ptr,
+        stream)
     _raise_on(err, "vote_histogram")
-    vote_histogram.launches += 1
+    _count(vote_histogram, g)
     return out
 
 
-vote_histogram.launches = 0
+vote_histogram.launches = vote_histogram.gated_launches = 0
+vote_histogram.captured = vote_histogram.captured_gated = 0
+vote_histogram.opened = {}
 
 
 def vote_bins_kernel(Xs, c1, c2, half, dx, num_x):

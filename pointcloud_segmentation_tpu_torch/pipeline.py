@@ -1,19 +1,29 @@
 """The per-frame pipeline on torch tensors: cloud in -> world map + outputs out.
 
 Twin of the JAX package's pipeline.py: filter -> Hough -> drone-to-world
-transform -> floor cutoff -> world-map fusion + intersections.  It runs
-eagerly; the only host reads are the Hough loop's, once per round.
+transform -> floor cutoff -> world-map fusion + intersections.
+`process_frame` runs eagerly, its only host reads the Hough loop's (once a
+round with ``loop="eager"``, none with ``loop="graph"``).
+`make_process_frame` and `make_process_frame_packed` are the JAX package's
+compiled frame: on a card, a step that captures the whole frame into one
+CUDA graph and replays it once a frame, the world map updated in place in
+the graph's own tensors (the JAX step donates its state); on the CPU the
+same step runs eagerly.
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from typing import NamedTuple
 
 import torch
 
 from .config import PipelineConfig
 from .geometry import quat_to_rot
-from .ops.hough import KERNELS, AxisGroup, SegmentBatch, Voting, extract_lines
+from .ops import voting as V
+from .ops.hough import (KERNELS, AxisGroup, SegmentBatch, Voting,
+                        direction_tables, extract_lines)
 from .ops.preproc import preprocess
 from .worldmap import WorldState, init_world, world_step
 
@@ -78,15 +88,16 @@ def compute_dtype(cfg: PipelineConfig) -> torch.dtype:
 def frame_segments(raw_points: torch.Tensor, position: torch.Tensor,
                    quat_wxyz: torch.Tensor, cfg: PipelineConfig,
                    dir_tables: tuple | None = None, voting: Voting = KERNELS,
-                   shard: AxisGroup | None = None):
+                   shard: AxisGroup | None = None, loop: str = "eager"):
     """The per-frame stages, which touch no world state: filter -> Hough ->
     drone-to-world transform -> floor cutoff.  Returns (filtered, fvalid,
     fcount, hough result, world-frame segments).  With a `shard`, `dir_tables`
     is this rank's slice of the direction table and every rank of the
-    shard's group calls with the same frame (ops/hough.py)."""
+    shard's group calls with the same frame (ops/hough.py).  `loop` is the
+    Hough loop's form (ops/hough.extract_lines)."""
     raw_points = raw_points.to(compute_dtype(cfg))
     filtered, fvalid, fcount = preprocess(raw_points, cfg)
-    hough = extract_lines(filtered, fvalid, cfg, dir_tables, voting, shard)
+    hough = extract_lines(filtered, fvalid, cfg, dir_tables, voting, shard, loop)
 
     frame_segs = hough.segments
     if cfg.surface_offset_correction:
@@ -100,11 +111,12 @@ def process_frame(state: WorldState, raw_points: torch.Tensor,
                   position: torch.Tensor, quat_wxyz: torch.Tensor,
                   cfg: PipelineConfig, dir_tables: tuple | None = None,
                   voting: Voting = KERNELS,
-                  shard: AxisGroup | None = None) -> tuple[WorldState, FrameOutput]:
+                  shard: AxisGroup | None = None,
+                  loop: str = "eager") -> tuple[WorldState, FrameOutput]:
     """One full frame.  raw_points: (N_raw, 3), NaN = invalid return, cast to
     the config's compute_dtype; every tensor on the world state's device."""
     filtered, fvalid, fcount, hough, segs = frame_segments(
-        raw_points, position, quat_wxyz, cfg, dir_tables, voting, shard)
+        raw_points, position, quat_wxyz, cfg, dir_tables, voting, shard, loop)
 
     state, slots = world_step(state, segs, cfg)
 
@@ -119,15 +131,193 @@ def process_frame(state: WorldState, raw_points: torch.Tensor,
 def process_frame_packed(state: WorldState, raw_points: torch.Tensor,
                          position: torch.Tensor, quat_wxyz: torch.Tensor,
                          cfg: PipelineConfig, dir_tables: tuple | None = None,
-                         voting: Voting = KERNELS, shard: AxisGroup | None = None):
+                         voting: Voting = KERNELS, shard: AxisGroup | None = None,
+                         loop: str = "eager"):
     """`process_frame`, also returning the frame's host-bound scalars
     (world_count, nlines, status, overflow) as one (4,) int32 tensor, so the
-    runtime reads the host once per frame.  Twin of the JAX package's
+    runtime reads the host once per frame.  The eager body of
     `make_process_frame_packed`."""
     state, out = process_frame(state, raw_points, position, quat_wxyz, cfg,
-                               dir_tables, voting, shard)
+                               dir_tables, voting, shard, loop)
     scalars = torch.stack([out.world_count, out.nlines, out.status, out.overflow])
     return state, out, scalars
+
+
+def _copy_state(dst: WorldState, src: WorldState) -> None:
+    for d, s in zip(dst, src):
+        d.copy_(s)
+
+
+def _clone_state(state: WorldState) -> WorldState:
+    return WorldState(*(t.clone() for t in state))
+
+
+class _Captured(NamedTuple):
+    """One captured frame: its graph, its static input (the raw points, the
+    position and the quaternion in one flat buffer) and outputs, and the
+    kernel launches it holds, by wrapper: (launches, gated launches)."""
+
+    graph: object
+    inputs: torch.Tensor
+    out: FrameOutput
+    scalars: torch.Tensor
+    launches: dict
+
+
+class FrameStep:
+    """`make_process_frame(_packed)`'s step: ``step(state, raw_points,
+    position, quat_wxyz)`` -> (state', FrameOutput[, scalars]).
+
+    On a card, the first call with a raw shape and type captures the frame
+    (preprocess -> Hough with ``loop="graph"`` -> offset correction ->
+    transform -> floor cutoff -> world fusion -> packed scalars) into one
+    `torch.cuda.CUDAGraph`, and every call replays it once.  The world state
+    lives in the step's own tensors (`self.state`): a call with another
+    state copies it in first, as the JAX step takes a donated state, and
+    every call returns `self.state`, updated in place, with the graph's
+    static outputs, which the next replay overwrites: a caller takes what it
+    needs from them before its next call.  Inputs may lie on the host (one
+    flat pinned copy a frame) or on the card.  A replay runs on the step's
+    own stream, which waits for the caller's current stream before and
+    makes it wait after, so work the caller queues after a call sees the
+    frame.
+
+    Capture: the frame is run once on the step's stream (the warm-up, which
+    builds the kernels and sets up each library's workspace for that
+    stream) and captured on it, both on the state as it is at the call;
+    the state is then restored from a copy taken before them, so the first
+    frame is fused once, by its replay.  A capture or replay that fails
+    raises, and a step whose capture failed raises at every later call:
+    nothing falls back to the eager frame.
+
+    Launch counts: each replay adds the kernel launches its graph holds to
+    the wrappers' `launches` and `gated_launches`, and its gated launches
+    add their gates to the device counts that `ops.voting.open_launches`
+    reads, so the launches that voted are told apart from those a closed
+    gate stopped.
+
+    On the CPU the step is the eager frame with ``loop="graph"``: no graph,
+    no state of its own.  The tables are the step's: one step, one table.
+    """
+
+    def __init__(self, cfg: PipelineConfig, device, dir_tables: tuple | None = None,
+                 packed: bool = True):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.packed = packed
+        if dir_tables is None:
+            dir_tables = direction_tables(cfg.granularity, self.device, compute_dtype(cfg))
+        self.dir_tables = dir_tables
+        self.on_card = self.device.type == "cuda"
+        self.state: WorldState | None = None   # the card's static world state
+        self.stream = torch.cuda.Stream(self.device) if self.on_card else None
+        self.replays = 0
+        # one record a captured graph: its key, the seconds of the warm-up and
+        # capture, the bytes the capture added to torch.cuda.memory_reserved
+        # (the graph's private pool, with the caching allocator emptied first)
+        # and memory_reserved after it
+        self.captures: list = []
+        self._graphs: dict = {}
+        self._failed: BaseException | None = None
+        self._lock = threading.Lock()
+
+    def _frame(self, state, raw_points, position, quat_wxyz):
+        return process_frame_packed(state, raw_points, position, quat_wxyz, self.cfg,
+                                    self.dir_tables, KERNELS, None, "graph")
+
+    def _result(self, state, out, scalars):
+        return (state, out, scalars) if self.packed else (state, out)
+
+    def __call__(self, state: WorldState, raw_points: torch.Tensor,
+                 position: torch.Tensor, quat_wxyz: torch.Tensor):
+        if not self.on_card:
+            dev = self.device
+            return self._result(*self._frame(state, raw_points.to(dev),
+                                             position.to(dev), quat_wxyz.to(dev)))
+        with self._lock, torch.cuda.device(self.device):
+            if self._failed is not None:
+                raise RuntimeError("this frame step's capture failed; it does not "
+                                   "run the frame eagerly instead") from self._failed
+            dt = compute_dtype(self.cfg)
+            flat = torch.cat([raw_points.reshape(-1).to(dt), position.reshape(-1).to(dt),
+                              quat_wxyz.reshape(-1).to(dt)])
+            if not flat.is_cuda:
+                flat = flat.pin_memory()
+            key = (tuple(raw_points.shape), raw_points.dtype)
+            caller = torch.cuda.current_stream(self.device)
+            self.stream.wait_stream(caller)
+            with torch.cuda.stream(self.stream):
+                cap = self._graphs.get(key)
+                if cap is None:
+                    try:
+                        cap = self._capture(key, state, flat)
+                    except BaseException as e:
+                        self._failed = e
+                        raise
+                if state is not self.state:
+                    _copy_state(self.state, state)
+                cap.inputs.copy_(flat, non_blocking=True)
+                cap.graph.replay()
+            caller.wait_stream(self.stream)
+            self.replays += 1
+            for fn, (n, gated) in cap.launches.items():
+                fn.launches += n
+                fn.gated_launches += gated
+            return self._result(self.state, cap.out, cap.scalars)
+
+    def _capture(self, key, state: WorldState, flat: torch.Tensor) -> _Captured:
+        """Warm up and capture the frame for `key` on the step's stream (the
+        current one here)."""
+        t0 = time.perf_counter()
+        if self.state is None:
+            self.state = _clone_state(state)
+        saved = _clone_state(state)
+        inputs = torch.empty(flat.shape, dtype=flat.dtype, device=self.device)
+        inputs.copy_(flat, non_blocking=True)
+        shape = key[0]
+        n_raw = inputs.numel() - 7
+        static = self.state
+
+        def frame():
+            raw = inputs[:n_raw].view(shape)
+            new, out, scalars = self._frame(static, raw, inputs[n_raw:n_raw + 3],
+                                            inputs[n_raw + 3:])
+            _copy_state(static, new)       # the map updates in place
+            return out, scalars
+
+        frame()                            # the warm-up
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        fns = (V.vote_state, V.vote_histogram)
+        before = [(fn.captured, fn.captured_gated) for fn in fns]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=self.stream,
+                              capture_error_mode="thread_local"):
+            out, scalars = frame()
+        launches = {fn: (fn.captured - n, fn.captured_gated - g)
+                    for fn, (n, g) in zip(fns, before)}
+        _copy_state(static, saved)         # undo the warm-up's fusion
+        cap = _Captured(graph, inputs, out, scalars, launches)
+        self._graphs[key] = cap
+        after = torch.cuda.memory_reserved(self.device)
+        self.captures.append({"key": key, "seconds": time.perf_counter() - t0,
+                              "pool_bytes": after - reserved, "reserved_after": after})
+        return cap
+
+
+def make_process_frame(cfg: PipelineConfig, device, dir_tables: tuple | None = None):
+    """The JAX package's `make_process_frame`: a `FrameStep` returning
+    (state', FrameOutput), one CUDA graph a frame on a card."""
+    return FrameStep(cfg, device, dir_tables, packed=False)
+
+
+def make_process_frame_packed(cfg: PipelineConfig, device,
+                              dir_tables: tuple | None = None):
+    """The JAX package's `make_process_frame_packed`: a `FrameStep` that also
+    returns the frame's (world_count, nlines, status, overflow) as one (4,)
+    int32 tensor, so the caller reads the host once a frame."""
+    return FrameStep(cfg, device, dir_tables, packed=True)
 
 
 def batched_process(state: WorldState, clouds: torch.Tensor,
@@ -164,8 +354,9 @@ def batched_process(state: WorldState, clouds: torch.Tensor,
 
 
 __all__ = [
-    "FrameOutput", "WorldState", "init_world", "process_frame",
-    "process_frame_packed", "batched_process", "frame_segments",
+    "FrameOutput", "FrameStep", "WorldState", "init_world", "process_frame",
+    "process_frame_packed", "make_process_frame", "make_process_frame_packed",
+    "batched_process", "frame_segments",
     "transform_segments", "height_cutoff", "surface_offset_correction",
     "compute_dtype",
 ]

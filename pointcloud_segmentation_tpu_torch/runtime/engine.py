@@ -25,6 +25,16 @@ The CPU runs only when the caller asks for it (``device="cpu"``), with the
 plain PyTorch versions of the kernels.  The pipeline's float type is the
 config's ``compute_dtype``: float32, or float64 in the parity mode.
 
+The frame's loop (``loop``).  On a card with the kernels the engine runs
+every frame through `pipeline.make_process_frame_packed`: the whole frame is
+one CUDA graph, captured at the first frame and replayed once a frame, the
+world map held in the graph's own tensors and updated in place, and the one
+host read a frame is its four packed scalars.  ``loop="eager"`` runs the
+frame as PyTorch ops instead, the Hough loop reading the host once a round:
+the explicit comparison, and the only loop for any voting but KERNELS
+(``loop="graph"`` with another raises).  On the CPU ``loop`` defaults to
+"eager"; "graph" runs the step's eager body.
+
 The streaming worker has the JAX engine's two read-back modes.  Deferred (the
 default: ``stream_sync_every`` > 1, no per-frame consumer of the frame's own
 values): a frame is dispatched and its four scalars (world count, nlines,
@@ -37,14 +47,14 @@ values): one read per frame, as `process_frame` does.  `run_replay(...,
 pipelined=True)` is the replay's form of the same idea: one stacked read at
 the end.
 
-What the deferred mode is worth here: the port's Hough loop reads the host in
-every round (ops/hough.py), so most of a frame has synchronised before its
-scalars exist; what a deferred read can still overlap with the next frame's
-host work is the world-map fusion queued after the loop's last read
+What the deferred mode is worth here: with the graph step a frame reads the
+host only for its scalars, so a deferred stream queues replays without
+waiting for any of them; with ``loop="eager"`` the Hough loop reads the host
+every round and only the world-map fusion after its last read can overlap
 (PERF.md has the card's numbers).  It is ported for what it changes in
-behaviour, which callers of the JAX engine rely on (the same constructor
+behaviour too, which callers of the JAX engine rely on (the same constructor
 keys, -1 until the flush, checkpoints at flush boundaries, one viz record a
-flush), not for speed.  Not ported, because each guards
+flush).  Not ported, because each guards
 against a fault of the JAX testbed's remote device link that a local CUDA
 device does not have: the break-out and shedding of batches behind a read
 that hangs for minutes, starting reads only while the worker is idle, padding
@@ -73,8 +83,9 @@ from ..convert import (read_checkpoint, read_oracle_checkpoint,
                        world_state_from_numpy, world_state_to_numpy,
                        write_checkpoint, write_oracle_checkpoint)
 from ..geometry import quat_to_rot
-from ..ops.hough import KERNELS, Voting, direction_tables
-from ..pipeline import batched_process, compute_dtype, process_frame_packed
+from ..ops.hough import KERNELS, LOOPS, Voting, direction_tables
+from ..pipeline import (batched_process, compute_dtype, make_process_frame_packed,
+                        process_frame_packed)
 from ..worldmap import init_world
 from . import csvio
 from .mailbox import LatestWinsMailbox
@@ -163,12 +174,17 @@ class SegmentationEngine:
                  viz_stream: Optional[object] = None,
                  viz_points: bool = False,
                  viz_every_frame: bool = False,
-                 stream_sync_every: int = 64):
+                 stream_sync_every: int = 64,
+                 loop: Optional[str] = None):
         """device: where the world map and every frame's tensors live
         ("cuda", the default, "cuda:1", "cpu").  voting: ops.hough.KERNELS
         (default) or ops.hough.PLAIN, the plain PyTorch versions of the
         kernels, which `chip_smoke.py` runs on the card to hold the kernels
         against.
+
+        loop: "graph" (the default on a card with voting=KERNELS: one CUDA
+        graph a frame, see the module's docstring) or "eager" (the default
+        otherwise).  "graph" needs voting=KERNELS and raises with any other.
 
         backend: "torch" (default) or "oracle", the numpy reference on the
         host, which ignores `device` and `voting` and needs no card.
@@ -286,15 +302,28 @@ class SegmentationEngine:
             logger.info("Configuration: %s", json.dumps(cfg.to_dict()))
         self._dtype = compute_dtype(cfg)
         self._npdt = np.float64 if cfg.compute_dtype == "float64" else np.float32
+        self._step = None       # the graph step (pipeline.FrameStep)
         if backend == "oracle":
             from .. import oracle
 
             self._oracle = oracle
             self._wm = oracle.WorldMap(cfg)
             self._tables = self._state = None
+            self.loop = None
         else:
+            if loop is None:
+                loop = ("graph" if self.device.type == "cuda" and voting is KERNELS
+                        else "eager")
+            if loop not in LOOPS:
+                raise ValueError(f"loop must be one of {LOOPS}, got {loop!r}")
+            if loop == "graph" and voting is not KERNELS:
+                raise ValueError("loop='graph' captures the kernels (voting=KERNELS); "
+                                 "other voting functions run with loop='eager'")
+            self.loop = loop
             self._tables = direction_tables(cfg.granularity, self.device, self._dtype)
             self._state = init_world(cfg, self.device)
+            if loop == "graph":
+                self._step = make_process_frame_packed(cfg, self.device, self._tables)
 
     def _make_mailbox(self):
         """The native (C++) latest-wins mailbox where the native runtime is
@@ -350,12 +379,20 @@ class SegmentationEngine:
     def _dispatch(self, points, position, quat):
         """One frame's step on the world state; caller holds _state_lock and
         the device.  Returns the frame's FrameOutput and its four host-bound
-        scalars as one tensor."""
+        scalars as one tensor.  With the graph step both are the graph's
+        static outputs, which the next frame overwrites: the caller takes
+        what it needs first (on the card, queued work of its own stream is
+        ordered before the next replay)."""
         dev = self.device
+        pos = torch.as_tensor(position, dtype=self._dtype)
+        q = torch.as_tensor(quat, dtype=self._dtype)
+        if self._step is not None:
+            # the step copies the frame to the card itself, in one piece
+            self._state, out, scalars = self._step(
+                self._state, torch.from_numpy(self._pad_raw_host(points)), pos, q)
+            return out, scalars
         self._state, out, scalars = process_frame_packed(
-            self._state, self._pad_raw(points),
-            torch.as_tensor(position, dtype=self._dtype).to(dev),
-            torch.as_tensor(quat, dtype=self._dtype).to(dev),
+            self._state, self._pad_raw(points), pos.to(dev), q.to(dev),
             self.cfg, self._tables, self.voting)
         return out, scalars
 
@@ -584,11 +621,12 @@ class SegmentationEngine:
         checkpoint, viz record or inlier store is made on this path.
 
         batch=k>1 (torch backend only; the oracle backend runs frame by
-        frame): frames go through `pipeline.batched_process` in chunks of k,
-        the per-frame scalars read once per chunk.  The world map is the
-        synchronous replay's bit for bit; `processing_time` is the chunk's
-        time shared evenly among its frames, and no checkpoint, viz record
-        or inlier store is made on this path."""
+        frame): frames go in chunks of k, the per-frame scalars read once per
+        chunk: with the graph step k replays, else one call of
+        `pipeline.batched_process`.  The world map is the synchronous
+        replay's bit for bit; `processing_time` is the chunk's time shared
+        evenly among its frames, and no checkpoint, viz record or inlier
+        store is made on this path."""
         if batch > 1 and self.backend == "torch":
             return self._run_replay_batched(frames, batch)
         if pipelined and self.backend == "torch":
@@ -621,6 +659,8 @@ class SegmentationEngine:
                 start = time.perf_counter()
                 with self._state_lock:
                     _, scalars = self._dispatch(fr.points, *pose)
+                    if self._step is not None:
+                        scalars = scalars.clone()   # the next replay overwrites them
                     end = time.perf_counter()
                     rec = {"wall_time": (end - self._program_start) * 1e6,
                            "processing_time": (end - start) * 1e6,
@@ -674,13 +714,23 @@ class SegmentationEngine:
                 live.append(i)
             start = time.perf_counter()
             with self._state_lock, self._on_device():
-                self._state, nlines, statuses, counts, overflows = batched_process(
-                    self._state, torch.from_numpy(clouds).to(dev),
-                    torch.from_numpy(poss).to(dev), torch.from_numpy(quats).to(dev),
-                    self.cfg, self._tables, self.voting)
-                # one device->host read per chunk
-                nl, st, wc, ov = torch.stack(
-                    [nlines, statuses, counts, overflows]).tolist()
+                if self._step is not None:
+                    # k replays; a frame without a pose is not replayed
+                    rows = torch.zeros((batch, 4), dtype=torch.int32, device=dev)
+                    for i in live:
+                        self._state, _, scalars = self._step(
+                            self._state, torch.from_numpy(clouds[i]),
+                            torch.from_numpy(poss[i]), torch.from_numpy(quats[i]))
+                        rows[i] = scalars
+                    wc, nl, st, ov = rows.T.tolist()    # one read per chunk
+                else:
+                    self._state, nlines, statuses, counts, overflows = batched_process(
+                        self._state, torch.from_numpy(clouds).to(dev),
+                        torch.from_numpy(poss).to(dev), torch.from_numpy(quats).to(dev),
+                        self.cfg, self._tables, self.voting)
+                    # one device->host read per chunk
+                    nl, st, wc, ov = torch.stack(
+                        [nlines, statuses, counts, overflows]).tolist()
                 end = time.perf_counter()
                 per = (end - start) / max(len(live), 1)
                 for i in live:
@@ -1190,6 +1240,8 @@ class SegmentationEngine:
                 self._wm.segments = data["segments"]
                 self._wm.inter = data["inter"]
             else:
+                # with the graph step, the next frame copies it into the
+                # step's own tensors (pipeline.FrameStep)
                 self._state = state
             self.frames_processed = data["frames_processed"]
             self.records = [

@@ -458,8 +458,9 @@ def test_cli_inspect_prints_the_jax_commands_shape_facts(capfd):
     assert info["granularity"] == 2 and info["num_directions"] == 81
     assert info["backend"] == "torch" and info["device"] == "cpu"
     assert info["frame"] == 10 and info["nlines"] >= 1 and info["wall_ms"] > 0
-    for k in ("kernel_launches", "device_us", "vote_state_launches", "vote_histogram_launches",
-              "flops", "bytes_accessed"):
+    assert info["loop"] == "eager"           # the CPU's default loop
+    for k in ("graph_launches", "kernel_launches", "host_reads", "device_us",
+              "vote_state_launches", "vote_histogram_launches", "flops", "bytes_accessed"):
         assert k not in info
     assert "flops" in jinfo
 

@@ -190,9 +190,10 @@ def test_delta_histogram_exact_at_large_num_x():
         return V.vote_histogram(Xs, torch.from_numpy(mask), c1t, c2t, half, dx, nx, NX)
 
     n_rem = int(removed.sum())
-    Xr = _compact_removed(Xs, torch.from_numpy(removed), n_rem).contiguous()
-    delta = V.vote_histogram(Xr, torch.ones(n_rem, dtype=torch.bool), c1t, c2t, half, dx,
-                             nx, NX)
+    # every removed point in a live column: sub_chunk N holds them all
+    Xr, live = _compact_removed(Xs, torch.from_numpy(removed), n_rem, N)
+    assert int(live.sum()) == n_rem
+    delta = V.vote_histogram(Xr, live, c1t, c2t, half, dx, nx, NX)
     full, remaining = hist(active), hist(active & ~removed)
     assert torch.equal(full - delta, remaining)
     jfull = JH._vote_histogram(jnp.asarray(X), jnp.asarray(c1, jnp.float32),

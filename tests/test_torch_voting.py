@@ -99,8 +99,7 @@ def test_vote_histogram_matches_xla_and_delta():
     delta = np.asarray(H._vote_histogram_delta(
         Xj, c1j, c2j, dj, dxj, nxj, jnp.asarray(removed), jnp.int32(n_rem),
         512, NX))
-    Xr = _compact_removed(X, torch.from_numpy(removed), n_rem)
-    live = torch.ones(n_rem, dtype=torch.bool)
+    Xr, live = _compact_removed(X, torch.from_numpy(removed), n_rem, 512)
     out = V.vote_histogram(Xr, live, c1, c2, half, dx, nx, NX)
     np.testing.assert_array_equal(out.numpy().astype(np.float32), delta)
 
@@ -148,8 +147,8 @@ def test_removed_cell_keys_match_xla():
         Xj, c1j, c2j, dj, dxj, nxj, jnp.asarray(removed), jnp.int32(n_rem),
         400, NX))
     kt = _removed_cell_keys(X, c1, c2, half, dx, nx, torch.from_numpy(removed),
-                            n_rem, NX)
-    np.testing.assert_array_equal(kt.numpy(), kj[:, :n_rem])
+                            n_rem, 400, NX)
+    np.testing.assert_array_equal(kt.numpy(), kj)
     assert (kj[:, n_rem:] == NX * NX).all()
 
 

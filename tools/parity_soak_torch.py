@@ -238,8 +238,10 @@ def knife_edge_trace(seed: int, mode: str = "base", f64: bool = False,
     frame's status and line count, and the b.x of every direction its Hough
     loop refined, in order (the value the reference aborts on when it is
     exactly 0.0), and that direction whole (``b``), read by tapping the
-    backend's canonicalize_direction for the run.  ``errors`` is
-    `compare_worlds` of the two world maps."""
+    backend's canonicalize_direction for the run: the torch backend runs its
+    eager loop (``loop="eager"``), whose rounds call the tap as they run and
+    end with the frame's last live round.  ``errors`` is `compare_worlds` of
+    the two world maps."""
     from pointcloud_segmentation_tpu_torch.ops import hough
     from pointcloud_segmentation_tpu_torch.oracle import _geometry
     from pointcloud_segmentation_tpu_torch.runtime import SegmentationEngine
@@ -257,7 +259,7 @@ def knife_edge_trace(seed: int, mode: str = "base", f64: bool = False,
 
         mod.canonicalize_direction = tap
         try:
-            eng = SegmentationEngine(cfg, backend=backend, device=device)
+            eng = SegmentationEngine(cfg, backend=backend, device=device, loop="eager")
             recs = []
             for fr in frames:
                 bx.append([])

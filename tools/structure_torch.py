@@ -172,9 +172,9 @@ class Counted:
         self.fn = fn
         self.shapes = collections.Counter()
 
-    def __call__(self, Xs, active, c1, c2, half, dx, num_x, num_x_static):
+    def __call__(self, Xs, active, c1, c2, half, dx, num_x, num_x_static, gate=None):
         self.shapes[(c1.shape[0], Xs.shape[0], num_x_static)] += 1
-        return self.fn(Xs, active, c1, c2, half, dx, num_x, num_x_static)
+        return self.fn(Xs, active, c1, c2, half, dx, num_x, num_x_static, gate)
 
 
 def recall(scene, segs) -> int:
@@ -206,14 +206,17 @@ def world_of(scene, snapshot) -> dict:
 
 
 def fly(cfg, scene, frames, backend="torch", device="cpu", voting=None,
-        snapshot_after: Optional[int] = None) -> dict:
+        snapshot_after: Optional[int] = None, loop: Optional[str] = None) -> dict:
     """One engine over the frames: each frame's integers, the world map at
     the end (and after the first `snapshot_after` frames, when that cuts
     the flight), the frames that overflowed the world map, and seconds;
-    also, for `frame_drift`, the world's endpoints after each frame."""
+    also, for `frame_drift`, the world's endpoints after each frame.
+    `loop`: the engine's frame loop (its default when None)."""
     from pointcloud_segmentation_tpu_torch import SegmentationEngine
 
     kw = {} if voting is None else {"voting": voting}
+    if loop is not None:
+        kw["loop"] = loop
     eng = SegmentationEngine(cfg, device=device, backend=backend, **kw)
     out = {k: [] for k in FRAME_INTS + ("endpoints_by_frame",)}
     cut = None
