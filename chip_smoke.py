@@ -1,15 +1,23 @@
-"""Smoke run of the PyTorch port on one CUDA card: builds the voting kernels,
-holds each against its plain PyTorch version at every shape the main path
-gives it (NX 79 and NX 261) and at edge cases, drives the replay main path,
-checks what comes out, and times the kernels beside their bounds.  Then it
-drives the live node loop at the shipped config on the card: a lockstep
+"""Smoke run of the PyTorch port on one CUDA card: builds the CUDA sources
+(the voting kernels and the conditional nodes of the captured frame, in
+one nvcc call), holds each kernel against its plain PyTorch
+version at every shape the main path gives it (NX 79 and NX 261) and at
+edge cases, drives the replay main path, checks what comes out, and times
+the kernels beside their bounds.  The main path is the engine's default on
+the card: one CUDA graph a frame whose Hough rounds and update branches are
+conditional nodes (loop "cond"); it is held frame by frame against the
+eager engine on the g6, g4, radius-0.015, float64 g6 and mockup replays,
+through the batched, pipelined, checkpointed and streamed engine, and
+profiled (launches, host reads, conditional nodes, device ms of a frame and
+of a dead round, ms/frame of both loops in turns).  Then it drives the live node loop at the shipped config on the card: a lockstep
 stream through the worker, paced and unpaced streams of a recorded log, the
 TCP server, the CLI in subprocesses, and a checkpoint resume, each held to
 the synchronous replay or to its own accounting, and each counting its
 vote_state launches.  Last the parity stack, on the card with the hand
-kernels: the float64 mode against the numpy oracle on the host (g6 lazy and
-g4 carry on the 31-frame replay, both kernels launched, float64 lazy equal
-to float64 carry), the
+kernels: the float64 mode against the numpy oracle on the host (g6 lazy on
+16 frames, whose oracle runs in a process of its own from the start of the
+script, through the eager and the cond engine, and g4 carry on the 31-frame
+replay; both kernels launched, float64 lazy equal to float64 carry), the
 kernels against their plain versions on the float32 inputs a float64 frame
 hands them, batched replay against synchronous, sequential fusion against
 vectorised, seeds of tools/parity_soak_torch.py, and the oracle backend.
@@ -62,7 +70,8 @@ lacks, and examples/map_a_structure_torch.py in a subprocess.
 
     python3 chip_smoke.py [--earlier path/to/an/earlier/voting.cu]
                           [--parity-only | --sensor-only | --shard-only |
-                           --native-only | --structure-only]
+                           --native-only | --structure-only | --graph-only |
+                           --ranks-only]
 
 Needs one CUDA card and nvcc; exits non-zero on any failure.  With
 --earlier, the kernels of that source (same C entries) are built too and
@@ -72,8 +81,9 @@ left out (for work on the parity stack; the last lines are printed only by a
 whole run); --sensor-only does the same for the sensor-data and display
 phases, --shard-only for the sharded and deferred phases, and --native-only
 for the node loop's native-runtime phases, the endurance stream, the CLI and
-the soak, and --structure-only for the structure flights and the g6 float32
-drift against the oracle.  It prints the
+the soak, --structure-only for the structure flights and the g6 float32
+drift against the oracle, and --graph-only for the captured frame's loop
+(cond) against the eager one.  It prints the
 card's name and power limit, one line per check and time, then a JSON line
 of the kernels, the card line again, and last the JSON line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -187,32 +197,22 @@ def bound(kind: str, n: int, n_active: int, rows: int, nxs: int) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def gated_entries(lib) -> bool:
-    """Whether the library's C entries take the gate (this source's do; an
-    earlier source given to --earlier may not)."""
-    return getattr(lib, "gated", True)
-
-
-def launcher(lib, name, Xs, act, c1, c2, half, dx, nx, NX, gate=None, outs=None):
+def launcher(lib, name, Xs, act, c1, c2, half, dx, nx, NX):
     """One launch of `name`'s kernel from the library `lib`, with the
-    wrapper's outputs and scalars made once (or `outs`): the kernel alone,
-    so that two libraries with the same C entries are timed alike.  `gate`:
-    a device int32 tensor, or None (no gate)."""
+    wrapper's outputs and scalars made once: the kernel alone, so that two
+    libraries with the same C entries are timed alike."""
     from pointcloud_segmentation_tpu_torch.ops import voting as V
 
     B, N = c1.shape[0], Xs.shape[0]
     half_dx, nxt, _ = V._launch_args(Xs, half, dx, nx)
-    if outs is None:
-        shape = (B,) if name == "vote_state" else (B, NX, NX)
-        outs = [torch.empty(shape, dtype=torch.int32, device=Xs.device)
-                for _ in range(3 if name == "vote_state" else 1)]
+    shape = (B,) if name == "vote_state" else (B, NX, NX)
+    outs = [torch.empty(shape, dtype=torch.int32, device=Xs.device)
+            for _ in range(3 if name == "vote_state" else 1)]
     entry = lib.pcs_vote_state if name == "vote_state" else lib.pcs_vote_histogram
     args = [Xs.data_ptr(), act.data_ptr(), N, c1.data_ptr(), c2.data_ptr(), B,
             half_dx.data_ptr(), nxt.data_ptr(), NX, *(o.data_ptr() for o in outs)]
-    if gated_entries(lib):
-        args.append(None if gate is None else gate.data_ptr())
 
-    def run(keep=(half_dx, nxt, outs, gate)):   # keep: the tensors behind args
+    def run(keep=(half_dx, nxt, outs)):   # keep: the tensors behind args
         err = entry(*args, torch.cuda.current_stream().cuda_stream)
         if err:
             fail(f"{name} launch failed: CUDA error {err}")
@@ -295,48 +295,6 @@ class Shapes:
         if timed:
             self.time("vote_histogram", label, Xs, act, c1, c2, half, dx, nx, NX,
                       compare=True)
-
-    def gated(self, name, label, p, c1, c2):
-        """The kernel of `p`'s mode with its gate: closed (0), the C entry
-        writes nothing into outputs filled with -7 and the plain version
-        returns zeros; open (1, as an int32 and as a bool through the
-        wrapper), both equal the plain version's output."""
-        from pointcloud_segmentation_tpu_torch.ops import voting as V
-
-        Xs, act, half, dx, nx, NX = p
-        wrapper, plain = getattr(V, name), getattr(V, name + "_plain")
-        want = plain(Xs, act, c1, c2, half, dx, nx, NX)
-        want = want if name == "vote_state" else (want,)
-        shape = (c1.shape[0],) if name == "vote_state" else (c1.shape[0], NX, NX)
-        closed = torch.zeros(1, dtype=torch.int32, device=Xs.device)
-        outs = [torch.full(shape, -7, dtype=torch.int32, device=Xs.device) for _ in want]
-        shut = launcher(self.lib, name, Xs, act, c1, c2, half, dx, nx, NX, closed, outs)
-        shut()
-        zeros = plain(Xs, act, c1, c2, half, dx, nx, NX, closed)
-        zeros = zeros if name == "vote_state" else (zeros,)
-        torch.cuda.synchronize()
-        untouched = all(bool((o == -7).all()) for o in outs)
-        check(untouched and all(not z.any() for z in zeros),
-              f"{name} gate 0, {label} ({c1.shape[0]} rows, NX {NX}): the kernel wrote "
-              f"nothing, the plain version gave zeros")
-        opened = torch.ones(1, dtype=torch.int32, device=Xs.device)
-        open_ms = graph_ms(launcher(self.lib, name, Xs, act, c1, c2, half, dx, nx, NX,
-                                    opened))
-        print(f"time  {name} gated, {label} ({c1.shape[0]} rows, NX {NX}): gate 0 "
-              f"{graph_ms(shut):.4f} ms, gate 1 {open_ms:.4f} ms (CUDA-graph replays of "
-              f"the launch alone) [{self.card}]", flush=True)
-        e = 0
-        for gate in (torch.ones((), dtype=torch.int32, device=Xs.device),
-                     torch.ones((), dtype=torch.bool, device=Xs.device)):
-            got = wrapper(Xs, act, c1, c2, half, dx, nx, NX, gate)
-            got = got if name == "vote_state" else (got,)
-            pl = plain(Xs, act, c1, c2, half, dx, nx, NX, gate)
-            pl = pl if name == "vote_state" else (pl,)
-            e = max([e] + [max_err(a, b) for a, b in zip(got, want)]
-                    + [max_err(a, b) for a, b in zip(pl, want)])
-        self.errs[name] = max(self.errs[name], e)
-        check(e == 0, f"{name} gate 1, {label}: kernel and plain version equal the "
-                      f"ungated plain version, max err {e}")
 
     def time(self, name, label, Xs, act, c1, c2, half, dx, nx, NX, compare=False):
         """Kernel ms (CUDA-graph replays of the kernel's launch alone), plain
@@ -422,16 +380,6 @@ def kernel_checks(dev, frame, card, earlier=None):
         Xr, live = _compact_removed(X4, rem, n_rem, 512)
         sh.histogram(f"a {n_rem}-column delta", (Xr, live, half4, dx4, nx4, NX),
                      c14, c24, timed=timed)
-        if timed:
-            # the gate of every main-path launch form: the lazy state, the
-            # re-exam tiers, the carry histogram and its delta
-            sh.gated("vote_state", "the full g6 table", p6, c16, c26)
-            for rows in (2048, 256):
-                sh.gated("vote_state", f"{rows} gathered rows", p6,
-                         *gathered(c16, c26, rows, g))
-            sh.gated("vote_histogram", "g4", p4, c14, c24)
-            sh.gated("vote_histogram", f"a {n_rem}-column delta",
-                     (Xr, live, half4, dx4, nx4, NX), c14, c24)
         if timed:
             shard_shape_checks(sh, cfg6, cfg4, p6, p4, dev)
         if radius == 0.015:
@@ -557,14 +505,14 @@ class Counted:
         return self.fn(Xs, active, c1, *args)
 
 
-def replay(cfg, frames, dev, voting, per_frame=False):
-    """One engine (its default loop for `voting`) over the frames: records,
-    world segments and state at the end, the engine, and with `per_frame`
-    the world state after each frame."""
+def replay(cfg, frames, dev, voting, per_frame=False, loop=None):
+    """One engine (`loop`, or its default loop for `voting`) over the frames:
+    records, world segments and state at the end, the engine, and with
+    `per_frame` the world state after each frame."""
     from pointcloud_segmentation_tpu_torch import SegmentationEngine
     from pointcloud_segmentation_tpu_torch.convert import world_state_to_numpy
 
-    eng = SegmentationEngine(cfg, dev, voting=voting)
+    eng = SegmentationEngine(cfg, dev, voting=voting, loop=loop)
     if per_frame:
         recs, states = [], []
         for fr in frames:
@@ -837,10 +785,11 @@ def endurance_phase(card):
         "endurance_torch", REPO / "tools" / "endurance_torch.py")
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
-    V.vote_state.launches = V.vote_histogram.launches = 0
+    V.reset_counts()
     s = tool.run(minutes=1.5, rate_hz=30.0, granularity=6, device="cuda", window_s=10.0)
-    launches = V.vote_state.launches
-    check(launches > 0, f"endurance: launched vote_state {launches} times")
+    launches = V.ran_launches(V.vote_state)
+    check(launches > 0, f"endurance: vote_state ran {launches} times (the engine's default "
+                        f"loop, its launches in conditional nodes counted where they ran)")
     check(s["native_runtime"] and s["accounted"] and s["failed"] == 0,
           f"endurance: fed {s['fed']} = {s['processed']} processed + {s['dropped']} dropped "
           f"+ {s['skipped']} skipped + {s['failed']} failed, drained {s['drained']}")
@@ -994,86 +943,108 @@ def checkpoint_phase(cfg, frames, ref, tmp):
           "the straight g6 replay")
 
 
-# ----------------------------------------------------------- the graph step
+# ------------------------------------------------ the captured frame's loops
 
-GRAPH_REPEATS = 5       # interleaved replays of each loop for ms/frame
-GRAPH_TIMED = slice(8, 24)   # the frames of each timed replay, in mid-flight
+LOOPS_TIMED = ("cond", "eager")
+LOOP_REPEATS = 5        # interleaved replays of each loop for ms/frame
+LOOP_TIMED = slice(8, 24)    # the frames of each timed replay, in mid-flight
+# the masked graph loop (every round and branch issued, launches gated), which
+# the cond loop replaced: device ms of a NaN frame and of one dead round
+# (chip_smoke.py's loop phase at its last run with that loop; NVIDIA H100 80GB
+# HBM3, 700 W), printed beside the cond loop's for comparison
+MASKED_GRAPH_NAN_MS = {"g6 lazy": 19.736, "g4 carry": 10.292}
+MASKED_GRAPH_DEAD_ROUND_MS = {"g6 lazy": 1.8504, "g4 carry": 0.9061}
 
 
-def lockstep_pair(label, cfg, frames, dev):
-    """The graph engine (the card's default) and the eager engine side by
+def lockstep_loops(label, cfg, frames, dev, keep=False):
+    """The cond engine (the card's default) and the eager engine side by
     side, frame by frame: each frame's record (world count, nlines, status)
-    and the world state after it bit-equal.  Returns (graph engine, eager
-    engine)."""
+    and the world state after it bit-equal.  With `keep`, returns the cond
+    engine's per-frame (record, snapshot)."""
     from pointcloud_segmentation_tpu_torch import SegmentationEngine
     from pointcloud_segmentation_tpu_torch.convert import world_state_to_numpy
 
-    g = SegmentationEngine(cfg, dev)
-    e = SegmentationEngine(cfg, dev, loop="eager")
-    check((g.loop, e.loop) == ("graph", "eager"),
-          f"{label}: the engine's default on the card is the graph step")
-    bad = []
+    engs = {"cond": SegmentationEngine(cfg, dev),
+            "eager": SegmentationEngine(cfg, dev, loop="eager")}
+    check([e.loop for e in engs.values()] == list(engs),
+          f"{label}: the engine's default on the card is the cond step")
+    bad, kept = {"cond": []}, []
     for k, fr in enumerate(frames):
-        recs = []
-        for eng in (g, e):
+        recs, states = {}, {}
+        for loop, eng in engs.items():
             eng.push_pose(fr.t, fr.position, fr.quat_wxyz)
             r = eng.process_frame(fr.t, fr.points)
-            recs.append((r["seg_vec_size"], r["nblines"], r["status"]))
-        if recs[0] != recs[1] or not same_state(world_state_to_numpy(g.state),
-                                                world_state_to_numpy(e.state)):
-            bad.append(k)
-    check(not bad, f"{label}: graph engine == eager engine on every frame ({len(frames)} "
-                   f"frames: records and world state bit for bit; frames that differ {bad})")
-    step = g._step
-    check(step.replays == len(frames) and len(step.captures) == 1,
-          f"{label}: one capture, {step.replays} replays")
-    return g, e
+            recs[loop] = (r["seg_vec_size"], r["nblines"], r["status"])
+            states[loop] = world_state_to_numpy(eng.state)
+            if keep and loop == "cond":
+                kept.append((r, eng.world_snapshot()))
+        for loop in bad:
+            if recs[loop] != recs["eager"] or not same_state(states[loop], states["eager"]):
+                bad[loop].append(k)
+    for loop in bad:
+        step = engs[loop]._step
+        check(not bad[loop] and step.replays == len(frames) and len(step.captures) == 1,
+              f"{label}: {loop} engine == eager engine on every frame ({len(frames)} frames: "
+              f"records and world state bit for bit; frames that differ {bad[loop]}), one "
+              f"capture, {step.replays} replays")
+    return kept
 
 
-def graph_main_path(cfg6, cfg4, frames, dev, k6, k4, card):
+def loop_counts(fn) -> tuple:
+    """fn's launches since reset_counts(): (captured, ran)."""
+    from pointcloud_segmentation_tpu_torch.ops import voting as V
+
+    return fn.launches, V.ran_launches(fn)
+
+
+def main_path(cfg6, cfg4, frames, dev, k6, k4, card):
     """The main path as a user drives it: the engine's default on the card,
-    one CUDA graph a frame, over the g6 lazy and g4 carry replays, every
-    count set to 0 just before each and read just after.  Each frame's
-    record and world state is held bit for bit against the eager engine's
-    (k6, k4: counted runs with per-frame states).  Returns ({label: (graph
-    run, eager run)}, {kernel: (launches, open launches)})."""
+    one CUDA graph a frame whose Hough rounds and branches are conditional
+    nodes, over the g6 lazy and g4 carry replays, every count set to 0 just
+    before each and read just after.  Each frame's record and world state
+    is held bit for bit against the eager engine's (k6, k4: counted runs
+    with per-frame states).  Returns ({label: {loop: run}}, {kernel:
+    (captured, ran)} of the cond replays)."""
     from pointcloud_segmentation_tpu_torch.ops import voting as V
     from pointcloud_segmentation_tpu_torch.ops.hough import KERNELS, round_count
 
-    pairs, launches = {}, {}
+    runs, launches = {}, {}
     for label, name, cfg, eager in (("g6 lazy", "vote_state", cfg6, k6),
                                     ("g4 carry", "vote_histogram", cfg4, k4)):
+        runs[label] = {"eager": eager}
         V.reset_counts()
         run = replay(cfg, frames, dev, KERNELS, per_frame=True)
         fn = getattr(V, name)
-        total, gated, opened = fn.launches, fn.gated_launches, V.open_launches(fn)
-        launches[name] = (total, opened)
-        print(f"launches, {label} replay through the graph step: {name} {total} "
-              f"({gated} gated), of which {opened} voted (gate open or none) and "
-              f"{total - opened} were closed by their gate; vote_state {V.vote_state.launches}, "
-              f"vote_histogram {V.vote_histogram.launches}", flush=True)
-        check(opened > 0, f"{label} replay through the graph step: {name} voted in "
-                          f"{opened} of its {total} launches")
+        captured, ran = launches[name] = loop_counts(fn)
+        other = V.vote_histogram if fn is V.vote_state else V.vote_state
+        print(f"launches, {label} replay through the cond step: {name} {captured} "
+              f"captured (once a replay), {ran} ran, each of which voted; "
+              f"{other.__name__} {loop_counts(other)}", flush=True)
         eng = run["engine"]
         step = eng._step
-        check(eng.loop == "graph" and step.replays == len(frames)
-              and len(step.captures) == 1,
-              f"{label} replay: the engine's default on the card is the graph step, one "
+        check(eng.loop == "cond" and step.replays == len(frames) and len(step.captures) == 1,
+              f"{label} replay: the cond step (the engine's default on the card), one "
               f"capture and {step.replays} replays")
+        check(0 < ran < captured,
+              f"{label} replay through the cond step: {name} ran (and voted) in {ran} of "
+              f"the {captured} launches its graphs hold")
         bad = [k for k, (r, e, a, b) in enumerate(zip(run["records"], eager["records"],
                                                        run["states"], eager["states"]))
                if (r["seg_vec_size"], r["nblines"]) != (e["seg_vec_size"], e["nblines"])
                or not same_state(a, b)]
         check(len(run["records"]) == len(eager["records"]) == len(frames) and not bad,
-              f"graph {label}: graph engine == eager engine on every frame ({len(frames)} "
+              f"cond {label}: cond engine == eager engine on every frame ({len(frames)} "
               f"frames: records and world state bit for bit; frames that differ {bad})")
         cap = step.captures[0]
-        print(f"time  graph {label}: capture {cap['seconds']:.3f} s (warm-up frame and "
-              f"capture), the graph's pool {cap['pool_bytes'] / 2**20:.1f} MiB of "
-              f"memory_reserved ({cap['reserved_after'] / 2**20:.1f} MiB reserved after "
-              f"the capture), {round_count(cfg)} rounds a frame [{card}]", flush=True)
-        pairs[label] = (run, eager)
-    return pairs, launches
+        print(f"time  cond {label}: capture {cap['seconds']:.3f} s (warm-up frame, thrown-"
+              f"away capture and capture), the graph's pool {cap['pool_bytes'] / 2**20:.1f} "
+              f"MiB of memory_reserved ({cap['reserved_after'] / 2**20:.1f} MiB reserved "
+              f"after the capture), {round_count(cfg)} rounds a frame, {cap['cond_nodes']} "
+              f"conditional nodes [{card}]", flush=True)
+        check(cap["cond_nodes"] > round_count(cfg),
+              f"{label}: the cond graph holds a node a round and more for the branches")
+        runs[label]["cond"] = run
+    return runs, launches
 
 
 def profile_frame(eng, fr) -> dict:
@@ -1101,72 +1072,84 @@ def profile_frame(eng, fr) -> dict:
     return out
 
 
-def graph_phase(cfg6, cfg4, frames, dev, card, tmp, pairs):
-    """The graph step (pipeline.make_process_frame_packed, the engine's
-    default on the card) against the eager engine, beyond the main path's
-    g6 and g4 replays (`pairs`, from graph_main_path): bit for bit on the
-    radius-0.015 frames, the float64 g6 parity frames, the mockup flight at
-    g4, the batched and pipelined replays, a checkpoint resume and a
-    lockstep stream; the launches, host reads and device time of one frame
-    each way and of a frame whose every round is dead; ms/frame in turns."""
+def loop_phase(cfg6, cfg4, frames, dev, card, tmp, runs, k6s):
+    """The cond step (pipeline.make_process_frame_packed, the engine's
+    default on the card) against the eager engine, beyond the main path's g6 and g4 replays (`runs`, from
+    main_path): bit for bit on the radius-0.015 frames (against `k6s`,
+    the eager replay of them), the float64 g6 parity frames and the mockup
+    flight at g4 (held to its record); the batched and pipelined replays, a
+    checkpoint resume and a lockstep and an unpaced stream through the cond
+    engine; the launches, host reads and device time of one frame each way
+    and of a frame whose every round is dead; ms/frame in turns.  Returns
+    the cond engine's per-frame (record, snapshot) on the float64 parity
+    frames, which the parity stack holds against the oracle."""
     import dataclasses
 
     from pointcloud_segmentation_tpu_torch import SegmentationEngine
     from pointcloud_segmentation_tpu_torch.config import default_config
     from pointcloud_segmentation_tpu_torch.convert import world_state_to_numpy
     from pointcloud_segmentation_tpu_torch.io.replay import save_frames
-    from pointcloud_segmentation_tpu_torch.ops.hough import round_count
+    from pointcloud_segmentation_tpu_torch.ops.hough import KERNELS, round_count
 
     t_phase = time.perf_counter()
-    engines = {label: (g["engine"], e["engine"]) for label, (g, e) in pairs.items()}
     cfg6s = default_config(radius_sizes=(0.015,))
-    lockstep_pair("graph g6 radius 0.015, frames 10-14", cfg6s, frames[10:15], dev)
+    short = frames[10:15]
+    run = replay(cfg6s, short, dev, KERNELS, per_frame=True)
+    check(run["engine"].loop == "cond"
+          and [(r["nblines"], r["status"]) for r in run["records"]]
+          == [(r["nblines"], r["status"]) for r in k6s["records"]]
+          and all(same_state(a, b) for a, b in zip(run["states"], k6s["states"])),
+          "cond g6 radius 0.015, frames 10-14: cond engine == eager engine on every frame "
+          "(records and world state bit for bit)")
     part = frames[G6_PARITY_FRAMES]
-    lockstep_pair(f"graph float64 g6, frames {G6_PARITY_FRAMES.start}-"
-                  f"{G6_PARITY_FRAMES.stop - 1}",
-                  dataclasses.replace(cfg6, compute_dtype="float64"), part, dev)
+    f64_cond = lockstep_loops(f"float64 g6, frames {G6_PARITY_FRAMES.start}-"
+                              f"{G6_PARITY_FRAMES.stop - 1}",
+                              dataclasses.replace(cfg6, compute_dtype="float64"), part, dev,
+                              keep=True)
 
-    # the mockup flight at g4, graph against eager, and held to its record
+    # the mockup flight at g4 on both loops, the cond flight against the
+    # eager one and held to its record
     st = load_structure()
     recs = structure_records(st)
     scene, mframes = st.flight_frames("mockup")
     mcfg = st.flight_config("mockup", 4)
-    runs = {loop: st.fly(mcfg, scene, mframes, device=dev, loop=loop)
-            for loop in ("graph", "eager")}
-    cmp = st.compare(runs["graph"], runs["eager"], len(mframes), False)
-    check(cmp["frame_integers_equal"] and cmp["world_equal"] and cmp["drift"]["max"] == 0.0
-          and runs["graph"]["endpoints_by_frame"] == runs["eager"]["endpoints_by_frame"],
-          f"graph mockup g4: per-frame integers and every frame's world endpoints equal "
+    flown = {loop: st.fly(mcfg, scene, mframes, device=dev, loop=loop)
+             for loop in LOOPS_TIMED}
+    cmp = st.compare(flown["cond"], flown["eager"], len(mframes), False)
+    check(cmp["frame_integers_equal"] and cmp["world_equal"]
+          and cmp["drift"]["max"] == 0.0
+          and flown["cond"]["endpoints_by_frame"] == flown["eager"]["endpoints_by_frame"],
+          f"cond mockup g4: per-frame integers and every frame's world endpoints equal "
           f"the eager flight's ({len(mframes)} frames)")
     rec = recs[("mockup", 4)]
-    held_to_record("graph mockup g4", runs["graph"], rec)
+    held_to_record("cond mockup g4", flown["cond"], rec)
     # against the record's oracle side: the same segment beyond the
     # tolerance, by the same error, as the structure phase's known line
-    cmp = st.compare(runs["graph"], rec["oracle"], len(mframes), True)
+    cmp = st.compare(flown["cond"], rec["oracle"], len(mframes), True)
     recorded = rec["card_vs_oracle"]["beyond"]
     check([b["segment"] for b in cmp["beyond"]] == [b["segment"] for b in recorded]
           and all(abs(b["error"] - c["error"]) <= 1e-9
                   for b, c in zip(cmp["beyond"], recorded)),
-          "graph mockup g4 against the record's oracle: the endpoints beyond "
+          "cond mockup g4 against the record's oracle: the endpoints beyond "
           f"{st.ENDPOINT_TOL} are the record's")
-    known_failure("graph mockup g4 against the record's oracle",
+    known_failure("cond mockup g4 against the record's oracle",
                   f"card_vs_oracle: endpoints within {st.ENDPOINT_TOL}", cmp["beyond"])
 
-    # the batched and pipelined replays, a checkpoint resume and a lockstep
-    # stream through the graph engine, each against the eager g6 replay
-    ref = pairs["g6 lazy"][1]
+    # the batched and pipelined replays, a checkpoint resume and the streams
+    # through the cond engine, each against the eager g6 replay
+    ref = runs["g6 lazy"]["eager"]
     want = ref["state"]
     for kw in ({"batch": 4}, {"pipelined": True}):
         eng = SegmentationEngine(cfg6, dev)
         recs = eng.run_replay(frames, **kw)
-        check(eng.loop == "graph" and eng._step.replays == len(frames)
+        check(eng.loop == "cond" and eng._step.replays == len(frames)
               and [(r["seg_vec_size"], r["nblines"]) for r in recs]
               == [(r["seg_vec_size"], r["nblines"]) for r in ref["records"]]
               and same_state(world_state_to_numpy(eng.state), want),
-              f"graph run_replay({', '.join(f'{k}={v}' for k, v in kw.items())}): "
+              f"cond run_replay({', '.join(f'{k}={v}' for k, v in kw.items())}): "
               f"{eng._step.replays} replays, records and world state equal the eager "
               f"replay's")
-    ckpt = os.path.join(tmp, "graph_state.npz")
+    ckpt = os.path.join(tmp, "cond_state.npz")
     first = SegmentationEngine(cfg6, dev)
     first.run_replay(frames[:15])
     first.save_checkpoint(ckpt)
@@ -1175,10 +1158,10 @@ def graph_phase(cfg6, cfg4, frames, dev, card, tmp, pairs):
     resumed.load_checkpoint(ckpt)
     resumed.run_replay(frames[15:])
     check(same_state(world_state_to_numpy(resumed.state), want)
-          and resumed._step.state is resumed.state,
-          "graph checkpoint: resumed after frame 15 into a running graph engine, the world "
+          and resumed._step.state is resumed.state and resumed.loop == "cond",
+          "cond checkpoint: resumed after frame 15 into a running cond engine, the world "
           "state bit-identical to the eager g6 replay")
-    log = os.path.join(tmp, "graph_replay.pcsl")
+    log = os.path.join(tmp, "cond_replay.pcsl")
     save_frames(log, frames)
     eng = SegmentationEngine(cfg6, dev)
     eng.start()
@@ -1187,19 +1170,19 @@ def graph_phase(cfg6, cfg4, frames, dev, card, tmp, pairs):
             eng.push_pose(fr.t, fr.position, fr.quat_wxyz)
             eng.submit_cloud(fr.t, fr.points)
             if not eng.drain(target_total=i + 1, timeout=120.0):
-                fail(f"graph lockstep stream: frame {i} not accounted for in 120 s")
+                fail(f"cond lockstep stream: frame {i} not accounted for in 120 s")
     finally:
         eng.stop()
     check(eng.frames_processed == len(frames) and no_sentinels(eng.records)
           and [(r["seg_vec_size"], r["nblines"]) for r in eng.records]
           == [(r["seg_vec_size"], r["nblines"]) for r in ref["records"]]
           and same_state(world_state_to_numpy(eng.state), want),
-          f"graph lockstep stream (deferred read-back): {eng.frames_processed} frames, "
+          f"cond lockstep stream (deferred read-back): {eng.frames_processed} frames, "
           f"records and world state equal the eager replay's")
     out = eng.run_streaming_from_log(log, rate_hz=0.0)
     check(out["drained"] and out["failed"] == 0 and out["fed"] == out["processed"]
           + out["dropped"] + out["skipped"],
-          f"graph unpaced stream: {out['processed']} processed, {out['dropped']} dropped of "
+          f"cond unpaced stream: {out['processed']} processed, {out['dropped']} dropped of "
           f"{out['fed']} fed, drained")
 
     # one frame of each loop under the profiler, after the replay: frame 10
@@ -1207,40 +1190,55 @@ def graph_phase(cfg6, cfg4, frames, dev, card, tmp, pairs):
     later = frames[-1].t + 1.0
     fr10 = dataclasses.replace(frames[10], t=later)
     nan = dataclasses.replace(frames[10], t=later + 1.0, points=np.zeros((0, 3), np.float32))
-    for label, (g, e) in engines.items():
+    engines = {label: {loop: r["engine"] for loop, r in by_loop.items()}
+               for label, by_loop in runs.items()}
+    for label, engs in engines.items():
         prof = {}
-        for loop, eng in (("graph", g), ("eager", e)):
+        for loop in LOOPS_TIMED:
             for what, f in (("frame 10", fr10), ("a NaN frame", nan)):
-                prof[(loop, what)] = p = profile_frame(eng, f)
+                prof[(loop, what)] = p = profile_frame(engs[loop], f)
+                nodes = ("" if loop == "eager" else
+                         f", {engs[loop]._step.captures[0]['cond_nodes']} conditional nodes "
+                         f"in the graph")
                 print(f"time  {loop} {label}, {what} under the profiler: "
                       f"{p['graph_launches']} cudaGraphLaunch, {p['kernel_launches']} "
-                      f"cudaLaunchKernel, {p['host_reads']} host reads, device "
+                      f"cudaLaunchKernel, {p['host_reads']} host reads{nodes}, device "
                       f"{p['device_ms']:.3f} ms, wall {p['wall_ms']:.3f} ms [{card}]",
                       flush=True)
-        gp = prof[("graph", "frame 10")]
+        gp = prof[("cond", "frame 10")]
         for ms, n, name in gp["top"]:
-            print(f"      graph {label}, frame 10: {ms:.3f} ms ({ms / gp['device_ms']:.1%}) in "
-                  f"{n} launches of {name[:90]}", flush=True)
+            print(f"      cond {label}, frame 10: {ms:.3f} ms ({ms / gp['device_ms']:.1%}) "
+                  f"in {n} launches of {name[:90]}", flush=True)
         check(gp["graph_launches"] == 1 and gp["kernel_launches"] <= 20
               and gp["host_reads"] == 1,
-              f"graph {label}: one frame is 1 cudaGraphLaunch, {gp['kernel_launches']} "
+              f"cond {label}: one frame is 1 cudaGraphLaunch, {gp['kernel_launches']} "
               f"cudaLaunchKernel (<= 20) and {gp['host_reads']} host read")
-        dead = prof[("graph", "a NaN frame")]["device_ms"] - \
-            prof[("eager", "a NaN frame")]["device_ms"]
-        R = round_count(g.cfg)
-        print(f"time  graph {label}: {R} dead rounds of a NaN frame take {dead:.3f} ms of "
-              f"device time beyond the eager NaN frame's, {dead / R:.4f} ms a round "
-              f"[{card}]", flush=True)
+        # a dead round against a live one: all the NaN frame's rounds beyond
+        # the eager NaN frame's time (which runs none), against frame 10's
+        # time beyond the NaN frame's over the most rounds it can run
+        R = round_count(engs["cond"].cfg)
+        nan_ms = prof[("cond", "a NaN frame")]["device_ms"]
+        dead = nan_ms - prof[("eager", "a NaN frame")]["device_ms"]
+        live = (gp["device_ms"] - nan_ms) / R
+        print(f"time  cond {label}: {R} dead rounds of a NaN frame take {dead:.3f} ms of "
+              f"device time beyond the eager NaN frame's, {dead / R:.4f} ms a round; a live "
+              f"round of frame 10 at least {live:.3f} ms (the masked graph loop's NaN frame "
+              f"took {MASKED_GRAPH_NAN_MS[label]} ms, its dead round "
+              f"{MASKED_GRAPH_DEAD_ROUND_MS[label]} ms, on an H100 at 700 W) [{card}]",
+              flush=True)
+        check(dead < live,
+              f"{label}: the cond graph's {R} dead rounds together cost less than one live "
+              f"round ({dead:.3f} against {live:.3f} ms)")
 
-    # ms/frame in turns: graph, eager, eager, graph, ... on fresh maps
-    timed = frames[GRAPH_TIMED]
-    blank = os.path.join(tmp, "graph_blank.npz")
-    for label, (g, e) in engines.items():
-        SegmentationEngine(g.cfg, dev, loop="eager").save_checkpoint(blank)
-        runs = {"graph": [], "eager": []}
-        order = ["graph", "eager", "eager", "graph"] * ((GRAPH_REPEATS + 1) // 2)
-        for loop in order[:2 * GRAPH_REPEATS]:
-            eng = g if loop == "graph" else e
+    # ms/frame in turns: cond, eager, eager, cond, ... on fresh maps
+    timed = frames[LOOP_TIMED]
+    blank = os.path.join(tmp, "loops_blank.npz")
+    for label, engs in engines.items():
+        SegmentationEngine(engs["cond"].cfg, dev, loop="eager").save_checkpoint(blank)
+        times = {loop: [] for loop in LOOPS_TIMED}
+        order = (list(LOOPS_TIMED) + list(reversed(LOOPS_TIMED))) * ((LOOP_REPEATS + 1) // 2)
+        for loop in order[:len(LOOPS_TIMED) * LOOP_REPEATS]:
+            eng = engs[loop]
             eng.load_checkpoint(blank)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1249,18 +1247,19 @@ def graph_phase(cfg6, cfg4, frames, dev, card, tmp, pairs):
             if len(recs) != len(timed):
                 fail(f"{loop} {label}: {len(recs)} of {len(timed)} timed frames processed")
             wall = (time.perf_counter() - t0) * 1e3 / len(timed)
-            runs[loop].append((statistics.median(r["processing_time"] for r in recs) / 1e3,
-                               wall))
-        for loop, vals in runs.items():
+            times[loop].append((statistics.median(r["processing_time"] for r in recs) / 1e3,
+                                wall))
+        for loop, vals in times.items():
             med = [m for m, _ in vals]
             walls = [w for _, w in vals]
-            print(f"time  {loop} {label}, frames {GRAPH_TIMED.start}-{GRAPH_TIMED.stop - 1} x "
-                  f"{len(vals)} replays in turns "
-                  f"(graph, eager, eager, graph): median ms/frame {statistics.median(med):.3f} "
+            print(f"time  {loop} {label}, frames {LOOP_TIMED.start}-{LOOP_TIMED.stop - 1} x "
+                  f"{len(vals)} replays in turns (cond, eager, eager, cond): "
+                  f"median ms/frame {statistics.median(med):.3f} "
                   f"(spread {min(med):.3f}-{max(med):.3f}), wall ms/frame "
                   f"{statistics.median(walls):.3f} (spread {min(walls):.3f}-{max(walls):.3f}) "
                   f"[{card}]", flush=True)
-    print(f"time  graph phase {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    print(f"time  loop phase {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return f64_cond
 
 
 # ------------------------------------------------- sensor data and display
@@ -1560,18 +1559,21 @@ def sensor_cli_phase(bag, tmp, card):
           and (info["granularity"], info["num_directions"], info["num_x_max"],
                info["max_points"], info["max_world_segments"]) == (6, 20481, 79, 4096, 64),
           f"cli inspect: the shipped config's shape facts on {info['device']}")
-    check(info["loop"] == "graph" and info["graph_launches"] == 1
+    check(info["loop"] == "cond" and info["graph_launches"] == 1
           and info["kernel_launches"] <= 20 and info["host_reads"] == 1
-          and info["vote_state_launches"] > 0 and info["device_us"] > 0
+          and info["vote_state_launches"] >= info["vote_state_launches_ran"] > 0
+          and info["device_us"] > 0
           and info["nlines"] >= 1,
           f"cli inspect: frame {info['frame']} is 1 cudaGraphLaunch, "
-          f"{info['kernel_launches']} cudaLaunchKernel and {info['host_reads']} host read, "
-          f"vote_state {info['vote_state_launches']} times inside the graph")
+          f"{info['kernel_launches']} cudaLaunchKernel and {info['host_reads']} host read; "
+          f"vote_state {info['vote_state_launches']} launches in the cond graph, "
+          f"{info['vote_state_launches_ran']} of them ran and voted")
     print(f"time  cli inspect, frame {info['frame']} of the 4 Hz flight after one warm-up "
-          f"frame, under torch.profiler: graph_launches {info['graph_launches']}, "
-          f"kernel_launches {info['kernel_launches']}, host_reads {info['host_reads']}, "
-          f"device_us {info['device_us']}, wall_ms {info['wall_ms']:.3f}, "
-          f"vote_state_launches {info['vote_state_launches']}, vote_histogram_launches "
+          f"frame, under torch.profiler: loop {info['loop']}, graph_launches "
+          f"{info['graph_launches']}, kernel_launches {info['kernel_launches']}, host_reads "
+          f"{info['host_reads']}, device_us {info['device_us']}, wall_ms "
+          f"{info['wall_ms']:.3f}, vote_state_launches {info['vote_state_launches']} "
+          f"(ran {info['vote_state_launches_ran']}), vote_histogram_launches "
           f"{info['vote_histogram_launches']}, nlines {info['nlines']} [{card}]", flush=True)
 
 
@@ -1641,33 +1643,67 @@ G6_PARITY_FRAMES = slice(8, 24)
 SOAK_SEEDS = (("base", 3000, 4), ("g6", 3100, 1), ("g6", 3102, 1), ("sensor128", 3206, 1))
 
 
-def f64_parity(label, cfg, frames, kernel, card):
-    """The float64 mode on the card against the oracle backend on the host,
-    frame by frame: nlines, status, world count and every world segment's
-    points_size and radius exact, endpoints and intersection parameters
-    within 1e-4.  Returns (torch engine, oracle engine, the oracle's
-    per-frame records)."""
+class OracleRun:
+    """The oracle backend's replay of some frames on the host (`oracle_run`):
+    each frame's record and world snapshot, and, like the engine's, the
+    world segments at the end."""
+
+    def __init__(self, records, snapshots, segments, engine=None):
+        self.records, self.snapshots, self.segments = records, snapshots, segments
+        self.engine = engine
+
+    def world_segments(self):
+        return self.segments
+
+
+def oracle_run(cfg, frames, keep_engine=False) -> dict:
+    """The oracle backend over `frames` on the host, frame by frame: the
+    fields of an OracleRun.  Runs in a process of its own (`start_oracle`)
+    or here; `keep_engine` keeps the engine (here only: it does not
+    pickle)."""
     from pointcloud_segmentation_tpu_torch import SegmentationEngine
 
-    voting = counted_voting()
-    eng = SegmentationEngine(cfg, voting=voting)
     ref = SegmentationEngine(cfg, backend="oracle")
-    check(eng.state.a.dtype == torch.float64 and eng.state.inter.dtype == torch.float64
-          and eng._tables[0].dtype == torch.float64 and eng._tables[1].dtype == torch.float32,
-          f"{label}: float64 world map and direction vectors, float32 plane bases")
-    worst, t_port, t_ref, nlines, wants = 0.0, [], [], [], []
-    for k, fr in enumerate(frames):
-        for e in (eng, ref):
-            e.push_pose(fr.t, fr.position, fr.quat_wxyz)
-        got, want = eng.process_frame(fr.t, fr.points), ref.process_frame(fr.t, fr.points)
-        wants.append(want)
-        t_port.append(got["processing_time"] / 1e3)
-        t_ref.append(want["processing_time"] / 1e3)
-        nlines.append(got["nblines"])
+    records, snapshots = [], []
+    for fr in frames:
+        ref.push_pose(fr.t, fr.position, fr.quat_wxyz)
+        records.append(ref.process_frame(fr.t, fr.points))
+        snapshots.append(ref.world_snapshot())
+    return {"records": records, "snapshots": snapshots, "segments": ref.world_segments(),
+            "engine": ref if keep_engine else None}
+
+
+def start_oracle(cfg, frames):
+    """`oracle_run(cfg, frames)` in a spawned process of its own, beside the
+    card's phases, with two threads for numpy: (pool, its AsyncResult).
+    The caller terminates the pool, done or not."""
+    import multiprocessing
+
+    saved = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
+                                            "MKL_NUM_THREADS")}
+    os.environ.update({k: "2" for k in saved})
+    try:
+        pool = multiprocessing.get_context("spawn").Pool(1)    # the process starts here
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return pool, pool.apply_async(oracle_run, (cfg, frames))
+
+
+def held_to_oracle(label, got, want: OracleRun) -> float:
+    """A float64 run's frames (record, world snapshot) against the oracle's:
+    nlines, status and world count, every world segment's points_size and
+    radius exact, intersections' pairs equal; returns the worst gap of an
+    endpoint, a pca_coeff or an intersection parameter."""
+    worst = 0.0
+    for k, ((g, (segs, inter)), w, (osegs, ointer)) in enumerate(
+            zip(got, want.records, want.snapshots)):
         for f in ("nblines", "status", "seg_vec_size"):
-            if got[f] != want[f]:
-                fail(f"{label}, frame {k}: {f} {got[f]} against the oracle's {want[f]}")
-        (segs, inter), (osegs, ointer) = eng.world_snapshot(), ref.world_snapshot()
+            if g[f] != w[f]:
+                fail(f"{label}, frame {k}: {f} {g[f]} against the oracle's {w[f]}")
         for i, (s, o) in enumerate(zip(segs, osegs)):
             if (s["points_size"], s["radius"]) != (o["points_size"], o["radius"]):
                 fail(f"{label}, frame {k}, segment {i}: points_size and radius "
@@ -1679,18 +1715,44 @@ def f64_parity(label, cfg, frames, kernel, card):
             fail(f"{label}, frame {k}: intersections {inter} against {ointer}")
         for (_, a1, _, a2), (_, b1, _, b2) in zip(inter, ointer):
             worst = max(worst, abs(a1 - b1), abs(a2 - b2))
+    check(len(got) == len(want.records) and worst <= PARITY_TOL,
+          f"{label}: nlines, status, world count, points_size and radius equal the oracle's "
+          f"on each of {len(got)} frames; endpoints, pca_coeff and intersection parameters "
+          f"within {PARITY_TOL} (worst {worst:.3g})")
+    return worst
+
+
+def f64_parity(label, cfg, frames, kernel, card, oracle=None):
+    """The float64 mode on the card (the eager engine, its voting counted)
+    against the oracle backend on the host, frame by frame (held_to_oracle).
+    `oracle`: the oracle's run of these frames (an OracleRun, from a process
+    of its own), or None to run it here.  Returns (torch engine, the
+    oracle's run, the oracle's per-frame records)."""
+    from pointcloud_segmentation_tpu_torch import SegmentationEngine
+
+    voting = counted_voting()
+    eng = SegmentationEngine(cfg, voting=voting)
+    check(eng.state.a.dtype == torch.float64 and eng.state.inter.dtype == torch.float64
+          and eng._tables[0].dtype == torch.float64 and eng._tables[1].dtype == torch.float32,
+          f"{label}: float64 world map and direction vectors, float32 plane bases")
+    got = []
+    for fr in frames:
+        eng.push_pose(fr.t, fr.position, fr.quat_wxyz)
+        got.append((eng.process_frame(fr.t, fr.points), eng.world_snapshot()))
     launches_of(label, voting, kernel)
+    if oracle is None:
+        oracle = OracleRun(**oracle_run(cfg, frames, keep_engine=True))
+    held_to_oracle(label, got, oracle)
+    nlines = sum(r["nblines"] for r, _ in got)
     n_seg, n_int = len(eng.world_segments()), len(eng.intersections_rows())
-    check(sum(nlines) > 0 and n_seg >= 3,
-          f"{label}: nlines, status, world count, points_size and radius equal the "
-          f"oracle's on each of {len(frames)} frames ({sum(nlines)} lines, {n_seg} world "
-          f"segments, {n_int} intersections)")
-    check(worst <= PARITY_TOL, f"{label}: endpoints, pca_coeff and intersection "
-          f"parameters within {PARITY_TOL} of the oracle's on every frame (worst {worst:.3g})")
+    check(nlines > 0 and n_seg >= 3,
+          f"{label}: {nlines} lines, {n_seg} world segments, {n_int} intersections")
+    t_port = [r["processing_time"] / 1e3 for r, _ in got]
+    t_ref = [r["processing_time"] / 1e3 for r in oracle.records]
     print(f"time  {label}, {len(frames)} frames, median ms/frame: float64 on the card "
           f"{statistics.median(t_port):.3f}, the oracle on the host "
           f"{statistics.median(t_ref):.3f} [{card}]", flush=True)
-    return eng, ref, wants
+    return eng, oracle, oracle.records
 
 
 # the float32 drift against the oracle of the same replays on a CPU: the
@@ -1972,7 +2034,11 @@ def soak_phase(card):
     from pointcloud_segmentation_tpu_torch.ops import voting as V
 
     soak = load_soak()
-    V.vote_state.launches = V.vote_histogram.launches = 0
+    V.reset_counts()
+
+    def ran():
+        return V.ran_launches(V.vote_state) + V.ran_launches(V.vote_histogram)
+
     t0 = time.perf_counter()
     counts, n = collections.Counter(), 0
     for mode, seed, k in SOAK_SEEDS:
@@ -1980,11 +2046,11 @@ def soak_phase(card):
             cfg, _ = soak.random_case(seed, mode)
             check(cfg.num_x_max <= 105, f"soak seed {seed} ({mode}) draws a grid the oracle "
                                         f"bins in seconds (NX {cfg.num_x_max})")
-        before = V.vote_state.launches + V.vote_histogram.launches
+        before = ran()
         batch = soak.run_batch(k, seed, mode, False, "cuda")
         if mode == "sensor128":
             cfg, fr = soak.random_case(seed, mode)
-            launched = V.vote_state.launches + V.vote_histogram.launches - before
+            launched = ran() - before
             check(batch["counts"].get("real", 0) == 0 and len(fr[0].points) == 128 * 128
                   and launched > 0,
                   f"soak seed {seed} ({mode}): {len(fr)} frames of {len(fr[0].points)} rays "
@@ -1996,9 +2062,9 @@ def soak_phase(card):
           f"soak: {n} seeds on cuda, 0 unexplained; diverging by class {dict(counts)}")
     n += jax_divergent_seeds(soak)
     n_traced = knife_edge_witness(soak)
-    check(V.vote_state.launches > 0 and V.vote_histogram.launches > 0,
-          f"soak: launched vote_state {V.vote_state.launches} and vote_histogram "
-          f"{V.vote_histogram.launches} times")
+    n_state, n_hist = V.ran_launches(V.vote_state), V.ran_launches(V.vote_histogram)
+    check(n_state > 0 and n_hist > 0,
+          f"soak: vote_state ran {n_state} and vote_histogram {n_hist} times")
     print(f"time  soak, {n} seeds and {n_traced} knife-edge traces, both backends: "
           f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
@@ -2029,7 +2095,12 @@ def oracle_backend_phase(ref, tmp):
           + done.stdout.splitlines()[0])
 
 
-def parity_stack(cfg6, cfg4, frames, k6, dev, card, tmp, k4=None):
+def parity_stack(cfg6, cfg4, frames, k6, dev, card, tmp, k4=None, oracle6=None,
+                 f64_cond=None):
+    """The parity stack.  oracle6: the g6 float64 oracle's run of the parity
+    frames (started with start_oracle), or None to run it here; f64_cond:
+    the cond engine's float64 parity frames (loop_phase), held against it
+    too."""
     import dataclasses
 
     from pointcloud_segmentation_tpu_torch.ops.hough import KERNELS
@@ -2037,15 +2108,19 @@ def parity_stack(cfg6, cfg4, frames, k6, dev, card, tmp, k4=None):
     t0 = time.perf_counter()
     f64_kernel_checks(dev, frames[len(frames) // 2], card)
     part = frames[G6_PARITY_FRAMES]
+    label6 = f"frames {G6_PARITY_FRAMES.start}-{G6_PARITY_FRAMES.stop - 1}"
     _, ref6, want6 = f64_parity("float64 g6 lazy against the oracle",
                                 dataclasses.replace(cfg6, compute_dtype="float64"), part,
-                                "vote_state", card)
-    f32_against_oracle(f"f32 g6 lazy, frames {G6_PARITY_FRAMES.start}-"
-                       f"{G6_PARITY_FRAMES.stop - 1}", "g6", replay(cfg6, part, dev, KERNELS),
+                                "vote_state", card, oracle6)
+    if f64_cond is not None:
+        held_to_oracle(f"float64 g6 lazy through the cond step, {label6}, against the "
+                       f"oracle", f64_cond, ref6)
+    f32_against_oracle(f"f32 g6 lazy, {label6}", "g6", replay(cfg6, part, dev, KERNELS),
                        ref6, want6, card)
     cfg4_64 = dataclasses.replace(cfg4, compute_dtype="float64")
-    eng4, ref4, want4 = f64_parity("float64 g4 carry against the oracle", cfg4_64, frames,
+    eng4, run4, want4 = f64_parity("float64 g4 carry against the oracle", cfg4_64, frames,
                                    "vote_histogram", card)
+    ref4 = run4.engine
     f32_against_oracle(f"f32 g4 carry, {len(frames)} frames", "g4",
                        k4 if k4 is not None else replay(cfg4, frames, dev, KERNELS),
                        ref4, want4, card)
@@ -2656,8 +2731,8 @@ def main() -> None:
                     help="the kernel checks, the parity stack's f32 drift against the "
                          "oracle and the structure flights only; prints no result lines")
     ap.add_argument("--graph-only", action="store_true",
-                    help="the kernel checks and the graph step's phase only; prints "
-                         "no result lines")
+                    help="the kernel checks and the captured frame's loop (cond) "
+                         "against the eager one only; prints no result lines")
     ap.add_argument("--ranks-only", action="store_true",
                     help="as --shard-only without the deferred phases: on a host "
                          "with 2 or 4 cards the ranks' collectives run over NCCL")
@@ -2679,10 +2754,11 @@ def main() -> None:
     from pointcloud_segmentation_tpu_torch.ops.hough import KERNELS, PLAIN
 
     t0 = time.perf_counter()
-    _build.load_library()
-    print(f"build: {time.perf_counter() - t0:.2f} s to build and load "
-          f"({_build.BuildInfo.seconds:.2f} s in nvcc) -> {_build.BuildInfo.path}", flush=True)
-    for line in _build.BuildInfo.log.splitlines():
+    _build.load_library()          # voting.cu and graph_cond.cu, one nvcc call
+    info = _build.BuildInfo
+    print(f"build: {time.perf_counter() - t0:.2f} s to build and load the CUDA sources "
+          f"({info.seconds:.2f} s in nvcc) -> {info.path}", flush=True)
+    for line in info.log.splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             print("ptxas " + line.strip(), flush=True)
     from pointcloud_segmentation_tpu_torch import native
@@ -2698,11 +2774,6 @@ def main() -> None:
     if args.earlier:
         earlier_src = Path(args.earlier).resolve()
         earlier = _build.load_library(earlier_src)
-        if "gate" not in earlier_src.read_text():
-            # entries from before the gate: the same arguments without it
-            earlier.gated = False
-            for entry in (earlier.pcs_vote_state, earlier.pcs_vote_histogram):
-                entry.argtypes = entry.argtypes[:-2] + entry.argtypes[-1:]
         print(f"build: the earlier {args.earlier} -> {_build.BuildInfo.path}", flush=True)
 
     # the full-size replay: shipped config, default StaticShapes, 64x64 ToF
@@ -2749,9 +2820,11 @@ def main() -> None:
         kernel_checks(dev, frames[len(frames) // 2], card)
         k6, _ = counted_run("g6 replay", cfg6, frames, dev, "vote_state", per_frame=True)
         k4, _ = counted_run("g4 replay", cfg4, frames, dev, "vote_histogram", per_frame=True)
-        pairs, _ = graph_main_path(cfg6, cfg4, frames, dev, k6, k4, card)
+        k6s, _ = counted_run("g6 replay at radius 0.015", default_config(radius_sizes=(0.015,)),
+                             frames[10:15], dev, "vote_state", per_frame=True)
+        runs, _ = main_path(cfg6, cfg4, frames, dev, k6, k4, card)
         with tempfile.TemporaryDirectory(prefix="pcs_chip_smoke_") as tmp:
-            graph_phase(cfg6, cfg4, frames, dev, card, tmp, pairs)
+            loop_phase(cfg6, cfg4, frames, dev, card, tmp, runs, k6s)
         print("one stack only: no result lines", flush=True)
         sys.exit(3)
     if args.shard_only or args.ranks_only:
@@ -2766,6 +2839,25 @@ def main() -> None:
               flush=True)
         print("one stack only: no result lines", flush=True)
         sys.exit(3)
+
+    # the float64 g6 oracle of the parity stack, in a process of its own
+    # beside the card's phases
+    import dataclasses
+
+    oracle_pool, oracle6 = start_oracle(dataclasses.replace(cfg6, compute_dtype="float64"),
+                                        frames[G6_PARITY_FRAMES])
+    try:
+        whole_run(cfg6, cfg4, frames, dev, card, earlier, oracle6)
+    finally:
+        oracle_pool.terminate()
+        oracle_pool.join()
+
+
+def whole_run(cfg6, cfg4, frames, dev, card, earlier, oracle6):
+    """Every phase, then the result lines.  oracle6: the float64 g6 oracle's
+    run of the parity frames, coming from a process of its own."""
+    from pointcloud_segmentation_tpu_torch.config import default_config
+    from pointcloud_segmentation_tpu_torch.ops.hough import PLAIN
 
     sh = kernel_checks(dev, frames[len(frames) // 2], card, earlier)
     golden_checks(dev)
@@ -2782,7 +2874,8 @@ def main() -> None:
     k4, n_hist = counted_run("g4 replay", cfg4, frames, dev, "vote_histogram",
                              per_frame=True)
     short = frames[10:15]
-    k6s, _ = counted_run("g6 replay at radius 0.015", cfg6s, short, dev, "vote_state")
+    k6s, _ = counted_run("g6 replay at radius 0.015", cfg6s, short, dev, "vote_state",
+                         per_frame=True)
 
     for label, run in (("g6", k6), ("g4", k4)):
         statuses = [r["status"] for r in run["records"]]
@@ -2800,28 +2893,32 @@ def main() -> None:
     same_extraction(k6s, p6s, "g6 radius 0.015 kernels vs plain on the card")
 
     # the main path as a user drives it: the engine's default, one CUDA graph
-    # a frame (the counted runs above are the eager engine's)
-    pairs, launches = graph_main_path(cfg6, cfg4, frames, dev, k6, k4, card)
-    k6b = pairs["g6 lazy"][0]
+    # a frame with its rounds and branches as conditional nodes (the counted
+    # runs above are the eager engine's)
+    runs, launches = main_path(cfg6, cfg4, frames, dev, k6, k4, card)
 
     def ms_per_frame(run):
         return statistics.median(r["processing_time"] for r in run["records"]) / 1e3
 
-    for label, kr, pr, kr2 in (("g6 lazy", k6, p6, k6b), ("g4 carry", k4, p4, None)):
-        extra = f", graph step {ms_per_frame(kr2):.3f}" if kr2 else ""
+    for label, pr in (("g6 lazy", p6), ("g4 carry", p4)):
+        r = runs[label]
         print(f"time  replay {label}, {len(frames)} frames, median ms/frame: kernels "
-              f"{ms_per_frame(kr):.3f}{extra}, plain {ms_per_frame(pr):.3f} [{card}]",
-              flush=True)
+              f"(eager) {ms_per_frame(r['eager']):.3f}, cond step {ms_per_frame(r['cond']):.3f}, "
+              f"plain {ms_per_frame(pr):.3f} [{card}]", flush=True)
 
     # the live node loop at the shipped config, on the default device
     with tempfile.TemporaryDirectory(prefix="pcs_chip_smoke_") as tmp:
-        graph_phase(cfg6, cfg4, frames, dev, card, tmp, pairs)
+        f64_cond = loop_phase(cfg6, cfg4, frames, dev, card, tmp, runs, k6s)
         log = native_stack(cfg6, frames, k6, tmp, card)
         serve_phase(cfg6, frames, tmp)
         cli_phase(tmp, card)
         checkpoint_phase(cfg6, frames, k6, tmp)
         sensor_stack(cfg6, cfg4, frames, k6, dev, card, tmp)
-        parity_stack(cfg6, cfg4, frames, k6, dev, card, tmp, k4)
+        t0 = time.perf_counter()
+        got6 = OracleRun(**oracle6.get())
+        print(f"time  waited {time.perf_counter() - t0:.1f} s for the float64 g6 oracle's "
+              f"process [{card}]", flush=True)
+        parity_stack(cfg6, cfg4, frames, k6, dev, card, tmp, k4, got6, f64_cond)
         structure_stack(dev, card, sh, tmp)
         shard_stack(cfg6, cfg4, frames, k6, dev, card, tmp, sh, log)
 
@@ -2842,9 +2939,8 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "pointcloud_segmentation_tpu_torch/csrc/voting.cu",
-            "replaces": sources[name], "launches": launches[name][0],
-            "open_launches": launches[name][1],
-            "closed_launches": launches[name][0] - launches[name][1],
+            "replaces": sources[name], "launches": launches[name][1],
+            "launches_captured": launches[name][0], "launches_ran": launches[name][1],
             "max_abs_err": sh.errs[name], "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],

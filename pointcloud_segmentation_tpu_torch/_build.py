@@ -1,12 +1,15 @@
 """Builds the CUDA sources under ``csrc/`` with nvcc and loads them with ctypes.
 
-The library has a plain C interface (no PyTorch headers), so nvcc builds it
-in seconds.  It is built at first use into ``build/torch_kernels/`` beside the
-package, keyed by a hash of the source and the flags, so an unchanged source
-is built once per checkout.  Nothing here runs at import time.  One lock
-serialises the build and the load, so two threads that launch a kernel at
-once build it once (the engine loads it in its constructor, on the caller's
-thread, before a streaming worker starts).
+One library, from two sources in one nvcc call: ``voting.cu`` (the voting
+kernels) and ``graph_cond.cu`` (the conditional nodes of the captured
+frame, ops/hough.py `run_if`).  It has a plain C interface (no PyTorch
+headers), so nvcc builds it in seconds.  It is built at first use into
+``build/torch_kernels/`` beside the package, keyed by a hash of the sources
+and the flags, so unchanged sources are built once per checkout.  Nothing
+here runs at import time.  One lock serialises the build and the load, so
+two threads that launch a kernel at once build it once (the engine loads it
+in its constructor, on the caller's thread, before a streaming worker
+starts).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCE = _CSRC / "voting.cu"
+_GRAPH_COND = _CSRC / "graph_cond.cu"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 
 NVCC_FLAGS = (
@@ -37,12 +41,18 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # xs, active, n, c1, c2, nb, half_dx, num_x, nxs, best, key, ub, gate, stream
-    "pcs_vote_state": (_P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P),
-    # xs, active, n, c1, c2, nb, half_dx, num_x, nxs, out, gate, stream
-    "pcs_vote_histogram": (_P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P),
+    # xs, active, n, c1, c2, nb, half_dx, num_x, nxs, best, key, ub, stream
+    "pcs_vote_state": (_P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P),
+    # xs, active, n, c1, c2, nb, half_dx, num_x, nxs, out, stream
+    "pcs_vote_histogram": (_P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P),
     # xs, n, c1, c2, nb, half_dx, num_x, xi, yi, stream
     "pcs_vote_bins": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _P),
+    # stream, flag (one byte on the card), body stream
+    "pcs_if_begin": (_P, _P, _P),
+    # body stream
+    "pcs_if_end": (_P,),
+    # out: a new stream
+    "pcs_stream_create": (ctypes.POINTER(ctypes.c_void_p),),
 }
 
 
@@ -60,12 +70,14 @@ def _nvcc() -> str:
 
     if CUDA_HOME is None:
         raise RuntimeError("no CUDA toolkit found: nvcc is needed to build "
-                           "the voting kernels")
+                           "the CUDA sources")
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def _library_path(source: Path) -> Path:
-    h = hashlib.sha256(source.read_bytes())
+def _library_path(sources: tuple) -> Path:
+    h = hashlib.sha256()
+    for source in sources:
+        h.update(source.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libpcs_voting_{h.hexdigest()[:16]}.so"
 
@@ -75,9 +87,10 @@ _loaded: dict = {}       # source path -> its loaded library, for the process
 
 
 def load_library(source: Path = _SOURCE) -> ctypes.CDLL:
-    """Build (if needed) and load the voting library; raises on failure.
-    `source` may name another copy of ``voting.cu`` with the same C entries,
-    such as an earlier version to time beside this one."""
+    """Build (if needed) and load the library; raises on failure.  `source`
+    may name another copy of ``voting.cu`` with the same C entries, such as
+    an earlier version to time beside this one (built with this
+    ``graph_cond.cu``)."""
     with _lock:
         lib = _loaded.get(source)
         if lib is None:
@@ -86,13 +99,14 @@ def load_library(source: Path = _SOURCE) -> ctypes.CDLL:
 
 
 def _build_and_load(source: Path) -> ctypes.CDLL:
-    path = _library_path(source)
+    sources = (source, _GRAPH_COND)
+    path = _library_path(sources)
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)],
                               capture_output=True, text=True)
         BuildInfo.seconds = time.perf_counter() - t0
         BuildInfo.log = proc.stdout + proc.stderr
@@ -100,6 +114,8 @@ def _build_and_load(source: Path) -> ctypes.CDLL:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BuildInfo.log}")
         os.replace(tmp, path)   # atomic: a concurrent build sees old or new
+    else:
+        BuildInfo.seconds = 0.0
     BuildInfo.path = path
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():

@@ -327,9 +327,12 @@ def cmd_inspect(args) -> int:
     graph launches and kernel launches made outside a graph, apart
     (`launch_counts`), its host reads, its device time (the kernels' own
     time, summed, those inside the replayed graph included) and its wall
-    time (with the profiler on) take their place.  The engine's default
-    loop runs (one graph a frame on a card); ``--loop eager`` profiles the
-    eager frame instead.  On the CPU the card's fields are left out."""
+    time (with the profiler on) take their place, and each kernel's launches
+    two ways: issued (a graph's counted once a replay, those inside
+    conditional nodes included) and run on the card (each of which voted).
+    The engine's default loop runs (one graph a frame on a card, its rounds
+    and branches conditional nodes); ``--loop eager`` profiles the eager
+    frame instead.  On the CPU the card's fields are left out."""
     import contextlib
     import time
 
@@ -361,7 +364,7 @@ def cmd_inspect(args) -> int:
     with profiler():
         pass
     eng.run_replay(frames[-2:-1])
-    V.vote_state.launches = V.vote_histogram.launches = 0
+    V.reset_counts()
     with profiler() as prof:
         t0 = time.perf_counter()
         (rec,) = eng.run_replay(frames[-1:])
@@ -393,9 +396,11 @@ def cmd_inspect(args) -> int:
         "kernel_launches": counts.get("kernel_launches"),
         "host_reads": counts.get("host_reads"),
         "device_us": device_us,
-        "vote_state_launches": V.vote_state.launches if on_card else None,
-        "vote_histogram_launches": V.vote_histogram.launches if on_card else None,
     }
+    if on_card:
+        for fn in (V.vote_state, V.vote_histogram):
+            info[f"{fn.__name__}_launches"] = fn.launches
+            info[f"{fn.__name__}_launches_ran"] = V.ran_launches(fn)
     print(json.dumps({k: v for k, v in info.items() if v is not None}, indent=2))
     return 0
 
@@ -578,9 +583,10 @@ def main(argv=None) -> int:
     pi.add_argument("--scene", default="obs_tests", choices=SCENES,
                     help="simulated world whose default flight gives the frame")
     pi.add_argument("--seed", type=int, default=0)
-    pi.add_argument("--loop", choices=("graph", "eager"), default=None,
+    pi.add_argument("--loop", choices=("cond", "eager"), default=None,
                     help="the frame's loop (default: the engine's, one CUDA "
-                         "graph a frame on a card, eager on the CPU)")
+                         "graph a frame with conditional nodes on a card, eager "
+                         "on the CPU)")
     pi.set_defaults(fn=cmd_inspect)
 
     pt = sub.add_parser("timing", help="analyze a processing_time.csv")

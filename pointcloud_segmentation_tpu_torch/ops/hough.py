@@ -10,25 +10,28 @@ CUDA tensors, when a caller passes ``voting=PLAIN`` to compare the two).
 
 The loop is the JAX package's: one function, `_round`, is the body of the
 JAX ``lax.while_loop``, masked by a device flag ``live`` (the loop's
-condition), so a round that is not live changes nothing.  Two loops run the
-rounds, chosen by the caller:
-  * ``loop="graph"``: `round_count(cfg)` rounds with no host read, the JAX
-    loop's fixed-capacity form and what pipeline.make_process_frame
-    captures into one CUDA graph (on the CPU it runs as it is, so the CPU
-    tests run the captured code).  A round's ``lax.switch`` branches (keep /
-    increment or subtract / rebuild, and the lazy re-exam's tier) are all
-    issued, each kernel launch gated on the card by its branch
-    (ops/voting.py), and the result is picked by ``torch.where``; the
+condition), so a round that is not live changes nothing.  Two loops run
+the rounds, chosen by the caller:
+  * ``loop="cond"``: `round_count(cfg)` rounds, each inside `run_if` on its
+    ``live`` flag, and each ``lax.switch`` branch of the update (keep /
+    increment or subtract / rebuild, and the lazy re-exam's tier) inside a
+    nested `run_if` on its own flag, so only the rounds and branches the
+    JAX program runs issue their ops.  While a CUDA graph is captured
+    (pipeline.make_process_frame) each `run_if` is a conditional node, the
+    device deciding at replay; elsewhere, the CPU included, it reads its
+    flag on the host, which is the node's meaning, so the CPU tests run the
+    bodies the card captures.  The loop state lives in tensors made before
+    the first node, and each body writes its results into them; the
     removed points are compacted to a fixed `_SUB_CHUNK` columns with a
-    live-column mask.
+    live-column mask, since a shape is fixed at capture.
   * ``loop="eager"``: the same rounds until one ends the loop.  A round
     reads its branch and removed count on the host (and, in a lazy
     incremental round, its suspect count) and issues only that branch, its
-    compaction sized to the removed points: the dead columns and untaken
-    branches of the graph loop count nothing, so both loops give the same
-    bits.  The plain voting functions (whose bincount reads the host) and
-    a shard (whose collectives are not captured) take this one; asking for
-    "graph" with either raises.
+    compaction sized to the removed points: the dead columns of the cond
+    loop's compaction count nothing, so the two loops give the same bits.
+    The plain voting functions (whose bincount reads the host) and a shard
+    (whose collectives are not captured) take this one; asking for "cond"
+    with either raises.
 
 With an `AxisGroup` over the direction axis (the counterpart of the JAX
 ``dir_axis``) the direction table is one rank's contiguous slice of the
@@ -49,6 +52,9 @@ scatter and covariance eigensolves.
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import threading
 from typing import NamedTuple
 
 import torch
@@ -282,6 +288,121 @@ def _row(t, i):
     return t.index_select(0, i.reshape(1))[0]
 
 
+_BODY_DEPTH = 4            # nested run_if bodies a capture may hold
+_body_streams: dict = {}   # device -> the streams that capture bodies, one a depth
+_capture_lock = threading.Lock()
+_capturing = threading.local()   # .capture: this thread's CondCapture, if any
+
+
+class CondCapture:
+    """One capture's conditional nodes: the body streams of its card, the
+    nesting depth of the body being captured and `nodes`, the nodes added
+    so far."""
+
+    def __init__(self, device, streams):
+        self.device, self.streams = device, streams
+        self.depth = self.nodes = 0
+
+
+def _streams_of(device) -> list:
+    """The body streams of `device`, made at its first capture.  They are the
+    library's own (csrc/graph_cond.cu), never PyTorch's pooled ones, which
+    `torch.cuda.Stream()` hands out round-robin: one of those would in time
+    be the stream that captures the frame (a frame step's), and a capture
+    cannot begin on a stream that is already capturing."""
+    from .._build import load_library
+
+    streams = _body_streams.get(device)
+    if streams is None:
+        lib = load_library()
+        streams = []
+        with torch.cuda.device(device):
+            for _ in range(_BODY_DEPTH):
+                handle = ctypes.c_void_p()
+                err = lib.pcs_stream_create(ctypes.byref(handle))
+                if err != 0:
+                    raise RuntimeError(f"cudaStreamCreate failed ({err})")
+                streams.append(torch.cuda.ExternalStream(handle.value, device=device))
+        _body_streams[device] = streams
+    return streams
+
+
+@contextlib.contextmanager
+def cond_capture(graph, stream, capture_error_mode: str):
+    """``torch.cuda.graph(graph, stream=stream, ...)`` with a memory pool of
+    its own, for code whose `run_if` calls become conditional nodes of the
+    graph; yields the capture's `CondCapture`.
+
+    The body streams are shared by the card's captures, so one such capture
+    runs at a time in the process: the lock is taken before the capture
+    begins, and two engines whose streaming workers capture their first
+    frames at once take turns.
+
+    A body's tensors come from the graph's pool, as the frame's others do.
+    A body is captured on a body stream, which the pool's own filter (this
+    capture's streams) does not take, so the pool takes every allocation of
+    this thread until the capture ends, which removes the filter; the pool's
+    extra reference is released on the way out.  This leans on private
+    allocator calls (``torch._C._cuda_*Pool``) and on their order against
+    `torch.cuda.graph`'s own capture end; a card test frees a captured
+    step and sees its pool returned."""
+    device = V.pinned(stream.device)
+    index = device.index
+    with _capture_lock:
+        cap = CondCapture(device, _streams_of(device))
+        pool = torch.cuda.graph_pool_handle()
+        with torch.cuda.graph(graph, pool=pool, stream=stream,
+                              capture_error_mode=capture_error_mode):
+            torch._C._cuda_endAllocateToPool(index, pool)
+            torch._C._cuda_beginAllocateCurrentThreadToPool(index, pool)
+            _capturing.capture = cap
+            try:
+                yield cap
+            finally:
+                _capturing.capture = None
+                torch._C._cuda_releasePool(index, pool)
+
+
+def run_if(flag, body) -> None:
+    """``body()`` where the 0-dim bool `flag` holds: the one place that knows
+    about conditional nodes.  While this thread captures a CUDA graph in
+    `cond_capture`, the body is captured into an IF node of that graph
+    (csrc/graph_cond.cu): at replay the card reads the flag and runs the
+    body or skips it.  Anywhere else (the CPU, or the card outside a
+    capture) the flag is read on the host and the body run or skipped
+    there.  A body returns nothing: what it makes, it writes into tensors
+    made before the node."""
+    if flag.device.type != "cuda" or not torch.cuda.is_current_stream_capturing():
+        if bool(flag):                  # host read
+            body()
+        return
+    from .._build import load_library
+
+    cap = getattr(_capturing, "capture", None)
+    if cap is None or cap.device != flag.device:
+        raise RuntimeError(f"run_if: a capture on {flag.device} outside cond_capture")
+    if cap.depth == _BODY_DEPTH:
+        raise RuntimeError(f"run_if: more than {_BODY_DEPTH} nested bodies")
+    stream = cap.streams[cap.depth]
+    lib = load_library()
+    outer = torch.cuda.current_stream(flag.device)
+    pred = flag.reshape(()).to(torch.bool)
+    err = lib.pcs_if_begin(outer.cuda_stream, pred.data_ptr(), stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"run_if: adding the conditional node failed (error {err}: "
+                           f"-1 is a stream not capturing, else a CUDA error)")
+    cap.nodes += 1
+    cap.depth += 1
+    try:
+        with torch.cuda.stream(stream):
+            body()
+    finally:
+        cap.depth -= 1
+        err = lib.pcs_if_end(stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"run_if: ending the body's capture failed (CUDA error {err})")
+
+
 def center_cloud(points, valid, dx):
     """The frame's voting inputs: (Xs (N, 3) cloud shifted to its bbox centre
     with invalid rows zeroed, shift (3,), bbox diagonal d, half = d/2, grid
@@ -323,7 +444,12 @@ class _LoopState(NamedTuple):
     live: torch.Tensor        # bool: this round runs (the JAX loop's cond)
 
 
-LOOPS = ("eager", "graph")
+def _loop_tensors(s: _LoopState) -> list:
+    """The tensors of a loop state but its voting state, in field order."""
+    return [s.it, s.active, s.nlines, s.nout, s.fail, *s.segs, s.live]
+
+
+LOOPS = ("eager", "cond")
 
 
 def iteration_bound(cfg: PipelineConfig) -> int:
@@ -335,7 +461,7 @@ def iteration_bound(cfg: PipelineConfig) -> int:
 
 
 def round_count(cfg: PipelineConfig) -> int:
-    """The rounds the graph loop unrolls: every round that lets the next
+    """The rounds the cond loop unrolls: every round that lets the next
     one run has proceeded (ok3) and so added one to nlines, and a round runs
     only while nlines < opt_nlines, so at most opt_nlines rounds run when
     opt_nlines > 0 (10 at the shipped config); else the iteration bound.
@@ -372,18 +498,18 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
         the shard's group makes this call together.
       loop: what runs the rounds (module docstring): "eager" reads the
         host once a round (twice in a lazy incremental round) and issues
-        only the branch it read; "graph" runs `round_count(cfg)` masked
-        rounds with no host read, the form a CUDA graph captures.  "graph"
+        only the branch it read; "cond" puts each round and branch in a
+        `run_if` node, the form pipeline.make_process_frame captures; it
         raises with the plain voting functions or a shard.
     """
     if loop not in LOOPS:
         raise ValueError(f"loop must be one of {LOOPS}, got {loop!r}")
-    if loop == "graph" and _is_plain(voting):
-        raise ValueError("loop='graph' cannot take the plain voting functions: "
+    if loop != "eager" and _is_plain(voting):
+        raise ValueError(f"loop={loop!r} cannot take the plain voting functions: "
                          "torch.bincount reads the host to size its output, "
                          "which a CUDA graph cannot capture; use loop='eager'")
-    if loop == "graph" and shard is not None:
-        raise ValueError("loop='graph' cannot take a shard: its collectives "
+    if loop != "eager" and shard is not None:
+        raise ValueError(f"loop={loop!r} cannot take a shard: its collectives "
                          "are not captured; use loop='eager'")
     dev = points.device
     N = points.shape[0]
@@ -431,10 +557,10 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
     s_tier = min(s_cap, 2 * _VOTE_TILE)
     it_bound = iteration_bound(cfg)
 
-    def vstate_init(active0, gate=None):
+    def vstate_init(active0):
         if lazy:
-            return voting.vote_state(Xv, active0, c1, c2, half32, dx32, num_x, NX, gate)
-        v0 = voting.vote_histogram(Xv, active0, c1, c2, half32, dx32, num_x, NX, gate)
+            return voting.vote_state(Xv, active0, c1, c2, half32, dx32, num_x, NX)
+        v0 = voting.vote_histogram(Xv, active0, c1, c2, half32, dx32, num_x, NX)
         return v0, v0.amax(dim=(1, 2))
 
     def vstate_winner(vs):
@@ -451,9 +577,8 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
         cell_win = _first_true(_row(votes, b_win).reshape(cells) == M)
         return M, b_win, cell_win
 
-    def exam(vs, suspect, cap, active_next, gate):
-        """Recompute (best, key, ub) of <= cap suspect directions; the kernel
-        votes only when `gate` is open."""
+    def exam(vs, suspect, cap, active_next):
+        """Recompute (best, key, ub) of <= cap suspect directions."""
         best, key, ub = vs
         spos = torch.cumsum(suspect.to(torch.int32), 0, dtype=torch.int32) - 1
         # suspects past cap (this tier is not the round's) go to the dropped
@@ -464,55 +589,67 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
         idx = idx[:cap]
         idx_c = torch.clamp_max(idx, B - 1)
         bs, ks, us = voting.vote_state(Xv, active_next, c1[idx_c].contiguous(),
-                                       c2[idx_c].contiguous(), half32, dx32, num_x, NX,
-                                       gate)
+                                       c2[idx_c].contiguous(), half32, dx32, num_x, NX)
         return (scatter_rows(best, idx, bs), scatter_rows(key, idx, ks),
                 scatter_rows(ub, idx, us))
 
-    def pick(flag, a, b):
-        """a where the 0-dim bool `flag` holds, else b, field by field."""
-        return tuple(torch.where(flag, x, y) for x, y in zip(a, b))
+    def decrement(vs, m2, n_rem, width):
+        """The lazy incremental update's first step, in every loop: each
+        direction's best count less the votes the n_rem removed points of m2
+        (compacted to `width` columns) cast in its best cell, and the
+        directions whose bound could still reach the new maximum.  Returns
+        (the decremented state, suspect (B,) bool)."""
+        best, key, ub = vs
+        keys_r = _removed_cell_keys(Xv, c1, c2, half32, dx32, num_x, m2, n_rem, width, NX)
+        best_d = best - (keys_r == key[:, None]).sum(dim=1, dtype=torch.int32)
+        M_lb = best_d.max()
+        if shard is not None:
+            M_lb = shard.max(M_lb)
+        return (best_d, key, ub), ub >= M_lb     # other cells could win
+
+    def store(dst, src):
+        """A body's results into the loop's tensors (loop="cond")."""
+        for d, x in zip(dst, src):
+            d.copy_(x)
 
     def vstate_update(vs, branch, m2, n_rem, active_next):
         """The JAX `lax.switch(branch, [keep, increment/subtract, rebuild])`
-        with every branch issued: branch 0 keeps the state (the loop is
-        ending), 1 removes the n_rem points of m2 incrementally, 2 rebuilds
-        it from active_next (more than sub_chunk points removed).  Each
-        kernel launch is gated by its branch, so an untaken branch votes
-        nothing; its torch ops run and are discarded by `torch.where`."""
-        inc = branch == 1
+        with each branch and lazy tier in a `run_if` node of its own, writing
+        the new state into `vs` in place: branch 0 keeps the state (the loop
+        is ending), 1 removes the n_rem points of m2 incrementally, 2
+        rebuilds it from active_next (more than sub_chunk points removed).
+        Only the branch taken issues its ops, kernels and compaction
+        included."""
+        inc, rebuild = branch == 1, branch == 2
         if lazy:
-            best, key, ub = vs
-            keys_r = _removed_cell_keys(Xv, c1, c2, half32, dx32, num_x, m2, n_rem,
-                                        sub_chunk, NX)
-            best_d = best - (keys_r == key[:, None]).sum(dim=1, dtype=torch.int32)
-            M_lb = best_d.max()
-            if shard is not None:
-                M_lb = shard.max(M_lb)
-            suspect = ub >= M_lb                 # other cells could win
-            n_sus = suspect.sum()
-            # the suspect tier (JAX `lax.switch(sel, [s_tier, s_cap, rebuild])`)
-            over = n_sus > s_cap
-            rebuild = (branch == 2) | (inc & over)
-            dec = (best_d, key, ub)
-            g_cap = inc & ~over
-            if s_tier < s_cap:
-                g_tier = inc & (n_sus <= s_tier)
-                g_cap = g_cap & ~g_tier
-                out = pick(g_tier, exam(dec, suspect, s_tier, active_next, g_tier), vs)
-            else:
-                out = vs
-            out = pick(g_cap, exam(dec, suspect, s_cap, active_next, g_cap), out)
-            return pick(rebuild, vstate_init(active_next, rebuild), out)
-        votes, _ = vs
-        Xr, col_live = _compact_removed(Xv, m2, n_rem, sub_chunk)
-        delta = voting.vote_histogram(Xr.contiguous(), col_live, c1, c2, half32, dx32,
-                                      num_x, NX, inc)
-        rebuild = branch == 2
-        rebuilt = voting.vote_histogram(Xv, active_next, c1, c2, half32, dx32, num_x,
-                                        NX, rebuild)
-        vn = torch.where(rebuild, rebuilt, torch.where(inc, votes - delta, votes))
-        return vn, vn.amax(dim=(1, 2))
+            def increment():
+                dec, suspect = decrement(vs, m2, n_rem, sub_chunk)
+                n_sus = suspect.sum()
+                # the tier (JAX `lax.switch(sel, [s_tier, s_cap, rebuild])`),
+                # every flag made before the first of its nodes
+                over = n_sus > s_cap
+                tiers = [(s_cap, ~over)]
+                if s_tier < s_cap:
+                    g_tier = n_sus <= s_tier
+                    tiers = [(s_tier, g_tier), (s_cap, ~over & ~g_tier)]
+                for cap, flag in tiers:
+                    run_if(flag, lambda cap=cap: store(
+                        vs, exam(dec, suspect, cap, active_next)))
+                run_if(over, lambda: store(vs, vstate_init(active_next)))
+
+            run_if(inc, increment)
+            run_if(rebuild, lambda: store(vs, vstate_init(active_next)))
+            return
+        votes, row_max = vs
+
+        def subtract():
+            Xr, col_live = _compact_removed(Xv, m2, n_rem, sub_chunk)
+            votes.sub_(voting.vote_histogram(Xr.contiguous(), col_live, c1, c2, half32,
+                                             dx32, num_x, NX))
+            row_max.copy_(votes.amax(dim=(1, 2)))
+
+        run_if(inc, subtract)
+        run_if(rebuild, lambda: store(vs, vstate_init(active_next)))
 
     def vstate_update_eager(vs, branch: int, m2, n_rem: int, active_next):
         """`vstate_update`'s branch 1 or 2 alone, for the eager loop, which
@@ -522,18 +659,11 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
         if branch == 2:
             return vstate_init(active_next)
         if lazy:
-            best, key, ub = vs
-            keys_r = _removed_cell_keys(Xv, c1, c2, half32, dx32, num_x, m2, n_rem,
-                                        n_rem, NX)
-            best_d = best - (keys_r == key[:, None]).sum(dim=1, dtype=torch.int32)
-            M_lb = best_d.max()
-            if shard is not None:
-                M_lb = shard.max(M_lb)
-            suspect = ub >= M_lb                 # other cells could win
+            dec, suspect = decrement(vs, m2, n_rem, n_rem)
             n_sus = int(suspect.sum())           # host read: picks the tier
             for cap in (s_tier, s_cap):
                 if n_sus <= cap:
-                    return exam((best_d, key, ub), suspect, cap, active_next, None)
+                    return exam(dec, suspect, cap, active_next)
             return vstate_init(active_next)
         votes, _ = vs
         Xr, col_live = _compact_removed(Xv, m2, n_rem, n_rem)
@@ -544,12 +674,13 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
     slot_iota = torch.arange(L, device=dev)
     P2 = Xs + shift                                   # inliers in input frame
 
-    def _round(s: _LoopState, eager: bool = False):
+    def _round(s: _LoopState, loop: str):
         """One round of the JAX loop's body, masked by s.live: a round that
-        is not live changes nothing, so the graph loop may run it.  Returns
-        (the next state, its branch): the branch is a device tensor, or with
-        `eager` the host int the round read to size its update (0: the loop
-        ends, and the update is skipped)."""
+        is not live changes nothing.  Returns (the next state, its branch):
+        the branch is a device tensor, or in the eager loop the host int the
+        round read to size its update (0: the loop ends, and the update is
+        skipped).  In the cond loop the update writes the voting state
+        `s.vstate` in place, and the next state holds those same tensors."""
         M, b_win, cell_win = vstate_winner(s.vstate)
         b0, c1row, c2row = _row(dirs, b_win), _row(c1, b_win), _row(c2, b_win)
         if shard is not None:
@@ -657,13 +788,14 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
             ending = ending | (s.nlines + counted >= cfg.opt_nlines)
         live_next = proceed & ~ending
         branch = torch.where(live_next, torch.where(nv <= sub_chunk, 1, 2), 0)
-        if eager:
+        if loop == "eager":
             # host read, once a round: the branch and the removed count
             branch, n_rem = torch.stack([branch, nv]).tolist()
             vstate = (s.vstate if branch == 0 else
                       vstate_update_eager(s.vstate, branch, m2, n_rem, active_next))
         else:
-            vstate = vstate_update(s.vstate, branch, m2, nv, active_next)
+            vstate_update(s.vstate, branch, m2, nv, active_next)
+            vstate = s.vstate
         return _LoopState(
             it=s.it + s.live.to(torch.int32),
             active=torch.where(proceed, active_next, active),
@@ -683,17 +815,32 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
                           nout=zero, fail=torch.zeros((), dtype=torch.bool, device=dev),
                           segs=empty_segments(L, N, dt, dev), live=live0)
 
-    if loop == "graph":
-        s = start(vstate_init(active0, live0))
+    if loop == "cond":
+        # the loop's tensors, made before the first node; each node's body
+        # writes into them
+        if lazy:
+            vs = tuple(torch.zeros(B, dtype=torch.int32, device=dev) for _ in range(3))
+        else:
+            vs = (torch.zeros((B, NX, NX), dtype=torch.int32, device=dev),
+                  torch.zeros(B, dtype=torch.int32, device=dev))
+        s = start(vs)
+        s = s._replace(**{f: getattr(s, f).clone()          # one tensor each
+                          for f in ("it", "active", "nlines", "nout", "live")})
+        run_if(live0, lambda: store(vs, vstate_init(active0)))
+
+        def one_round():
+            nxt, _ = _round(s, loop)
+            store(_loop_tensors(s), _loop_tensors(nxt))
+
         for _ in range(round_count(cfg)):
-            s, _ = _round(s)
+            run_if(s.live, one_round)
     else:
         s = start(None)
         if bool(live0):                # host read: round 0's condition
             s = s._replace(vstate=vstate_init(active0))
             branch = 1
             while branch != 0:
-                s, branch = _round(s, eager=True)
+                s, branch = _round(s, loop)
 
     nlines = torch.where(s.fail, 0, s.nlines).to(torch.int32)
     status = torch.where(degenerate, 1,

@@ -7,23 +7,18 @@ wrapper counts its kernel launches in a plain integer attribute
 (``vote_state.launches``, ``vote_histogram.launches``), so a run can show that
 it went through the kernels.
 
-The gate.  `vote_state` and `vote_histogram` take ``gate``: None (the kernel
-votes), or one value on the card that the kernel reads there; at 0 it votes
-nothing and writes nothing, so its outputs hold whatever `torch.empty` gave
-them and the caller discards them (the graph loop of ops/hough.py issues
-every branch of a round this way).  The plain versions read the gate on the
-host and return zeros when it is closed.  The counts of a wrapper:
-  * ``launches``, ``gated_launches``: launches made, and those of them given
-    a gate (closed or open);
-  * ``captured``, ``captured_gated``: the same, recorded into a CUDA graph
-    while a stream captured; the graph's owner adds them to ``launches`` and
-    ``gated_launches`` at each replay (pipeline.FrameStep);
-  * `open_launches(fn)`: the launches that voted, the ungated ones and the
-    gated ones whose gate read nonzero, which only the card knows: a gated
-    launch adds its gate's truth to a device counter of its own, in the
-    graph too, and `open_launches` reads it.  `reset_counts()` sets the
-    launch counts and the device counts to 0 (``captured`` stays: it
-    describes graphs already made).
+A wrapper's counts, two figures apart:
+  * ``launches``: launches issued, those recorded into a CUDA graph counted
+    once a replay (the graph's owner, pipeline.FrameStep, adds them; while
+    a stream captures, a launch adds to ``captured`` instead);
+  * `ran_launches(fn)`: the launches that ran on the card, each of which
+    voted.  Inside a conditional node of a graph (ops/hough.py `run_if`) a
+    launch runs only when the node's flag holds, which only the card knows,
+    so each launch adds one to a device counter of its own, beside the
+    kernel, in the graph too.
+`reset_counts()` sets them to 0, the device counter in place (``captured``
+stays: it describes graphs already made).  The device counters of a card
+exist before a graph is captured on it (`prepare_counts`).
 
 Shapes and types at every public function:
   Xs (N, 3) float32 shifted coordinates; active (N,) bool;
@@ -95,16 +90,7 @@ def _state_of(counts):
     return best.to(torch.int32), key.to(torch.int32), ub.to(torch.int32)
 
 
-def _gate_closed(gate) -> bool:
-    """A plain version's reading of the gate: one host read (a sync on a
-    card), which is why no plain version is captured into a graph."""
-    return gate is not None and not bool(gate)
-
-
-def vote_state_plain(Xs, active, c1, c2, half, dx, num_x, num_x_static, gate=None):
-    if _gate_closed(gate):
-        z = torch.zeros(c1.shape[0], dtype=torch.int32, device=Xs.device)
-        return z, z.clone(), z.clone()
+def vote_state_plain(Xs, active, c1, c2, half, dx, num_x, num_x_static):
     Xa = Xs[active]
     outs = [_state_of(_tile_counts(Xa, c1[i:i + _TILE], c2[i:i + _TILE],
                                    half, dx, num_x, num_x_static))
@@ -115,11 +101,8 @@ def vote_state_plain(Xs, active, c1, c2, half, dx, num_x, num_x_static, gate=Non
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
-def vote_histogram_plain(Xs, active, c1, c2, half, dx, num_x, num_x_static,
-                         gate=None):
+def vote_histogram_plain(Xs, active, c1, c2, half, dx, num_x, num_x_static):
     nxs = num_x_static
-    if _gate_closed(gate):
-        return torch.zeros((c1.shape[0], nxs, nxs), dtype=torch.int32, device=Xs.device)
     Xa = Xs[active]
     parts = [_tile_counts(Xa, c1[i:i + _TILE], c2[i:i + _TILE],
                           half, dx, num_x, nxs)
@@ -174,58 +157,60 @@ def _launch_args(Xs, half, dx, num_x):
     return half_dx, nx, stream
 
 
-def _gate_int32(gate, dev):
-    """The gate as the (1,) int32 tensor the kernel reads, or None."""
-    if gate is None:
-        return None
-    if gate.device != dev or gate.numel() != 1:
-        raise ValueError(f"gate must be one value on {dev}, got {tuple(gate.shape)} "
-                         f"on {gate.device}")
-    return gate.reshape(1).to(torch.int32)
+def pinned(device) -> torch.device:
+    """`device` with its index: "cuda" is the current card, as a tensor made
+    there reports it."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
-def _count(fn, gate) -> None:
-    """One launch of fn's kernel, or one captured into a graph, with its
-    (1,) int32 gate or None (see the module's docstring)."""
-    gated = gate is not None
+def prepare_counts(device) -> None:
+    """Both wrappers' device counters on `device`, made now if missing: a
+    counter made inside a capture would be the graph's, refilled with 0 at
+    every replay."""
+    device = pinned(device)
+    for fn in (vote_state, vote_histogram):
+        if device not in fn.counts:
+            fn.counts[device] = torch.zeros((), dtype=torch.int64, device=device)
+
+
+def _count(fn, device) -> None:
+    """One launch of fn's kernel on `device`, or one captured into a graph
+    (see the module's docstring): the device counter gains 1 when it runs."""
     capturing = torch.cuda.is_current_stream_capturing()
-    if gated:
-        opened = fn.opened.get(gate.device)
-        if opened is None:
-            if capturing:
-                # made inside a capture it would be the graph's, and refilled
-                # with 0 at every replay
-                raise RuntimeError(f"{fn.__name__}: a gated launch captured before any "
-                                   f"on {gate.device}; launch once outside the capture")
-            opened = fn.opened[gate.device] = torch.zeros(
-                1, dtype=torch.int64, device=gate.device)
-        opened.add_(gate != 0)
+    counts = fn.counts.get(device)
+    if counts is None:
+        if capturing:
+            raise RuntimeError(f"{fn.__name__}: a launch captured on {device} before "
+                               f"its counters were made; call prepare_counts first")
+        prepare_counts(device)
+        counts = fn.counts[device]
+    counts.add_(1)
     if capturing:
         fn.captured += 1
-        fn.captured_gated += gated
     else:
         fn.launches += 1
-        fn.gated_launches += gated
 
 
-def open_launches(fn) -> int:
-    """fn's launches that voted since the last `reset_counts()`: the ungated
-    ones and the gated ones whose gate read nonzero on the card.  Reads the
+def ran_launches(fn) -> int:
+    """fn's launches that ran since the last `reset_counts()`.  Reads the
     card (after a synchronise of each device counted on)."""
-    opened = 0
-    for dev, t in fn.opened.items():
+    total = 0
+    for dev, t in fn.counts.items():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        opened += int(t.item())
-    return fn.launches - fn.gated_launches + opened
+        total += int(t)
+    return total
 
 
 def reset_counts() -> None:
     """Both wrappers' launch counts to 0, the device counters in place, so
     a captured graph goes on adding to them."""
     for fn in (vote_state, vote_histogram):
-        fn.launches = fn.gated_launches = 0
-        for t in fn.opened.values():
+        fn.launches = 0
+        for t in fn.counts.values():
             t.zero_()
 
 
@@ -234,13 +219,12 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def vote_state(Xs, active, c1, c2, half, dx, num_x, num_x_static, gate=None):
+def vote_state(Xs, active, c1, c2, half, dx, num_x, num_x_static):
     """Per-direction (best count, first flat cell at it, max count over every
     other cell), each (B,) int32: the values of ops/hough.py
-    `_vote_state_tiles`.  The flat cell is x*NX + y.  `gate`: see the
-    module's docstring."""
+    `_vote_state_tiles`.  The flat cell is x*NX + y."""
     if not Xs.is_cuda:
-        return vote_state_plain(Xs, active, c1, c2, half, dx, num_x, num_x_static, gate)
+        return vote_state_plain(Xs, active, c1, c2, half, dx, num_x, num_x_static)
     from .._build import load_library
 
     _check_cuda_args(Xs, active, c1, c2, half, dx, num_x, num_x_static)
@@ -248,30 +232,26 @@ def vote_state(Xs, active, c1, c2, half, dx, num_x, num_x_static, gate=None):
     best, key, ub = (torch.empty(B, dtype=torch.int32, device=Xs.device)
                      for _ in range(3))
     half_dx, nx, stream = _launch_args(Xs, half, dx, num_x)
-    g = _gate_int32(gate, Xs.device)
-    gate_ptr = None if g is None else g.data_ptr()
     err = load_library().pcs_vote_state(
         Xs.data_ptr(), active.data_ptr(), N, c1.data_ptr(), c2.data_ptr(), B,
         half_dx.data_ptr(), nx.data_ptr(), num_x_static,
-        best.data_ptr(), key.data_ptr(), ub.data_ptr(), gate_ptr, stream)
+        best.data_ptr(), key.data_ptr(), ub.data_ptr(), stream)
     _raise_on(err, "vote_state")
-    _count(vote_state, g)
+    _count(vote_state, Xs.device)
     return best, key, ub
 
 
-vote_state.launches = vote_state.gated_launches = 0
-vote_state.captured = vote_state.captured_gated = 0
-vote_state.opened = {}      # device -> (1,) int64: gated launches that voted
+vote_state.launches = vote_state.captured = 0
+vote_state.counts = {}      # device -> 0-dim int64: the launches that ran
 
 
-def vote_histogram(Xs, active, c1, c2, half, dx, num_x, num_x_static, gate=None):
+def vote_histogram(Xs, active, c1, c2, half, dx, num_x, num_x_static):
     """(B, NX, NX) int32 exact vote counts of the active points: the values of
     ops/hough.py `_vote_histogram` (and, on gathered points, of
-    `_vote_histogram_delta`) and of `vote_histogram_pallas`.  `gate`: see
-    the module's docstring."""
+    `_vote_histogram_delta`) and of `vote_histogram_pallas`."""
     if not Xs.is_cuda:
         return vote_histogram_plain(Xs, active, c1, c2, half, dx, num_x,
-                                    num_x_static, gate)
+                                    num_x_static)
     from .._build import load_library
 
     _check_cuda_args(Xs, active, c1, c2, half, dx, num_x, num_x_static)
@@ -279,20 +259,16 @@ def vote_histogram(Xs, active, c1, c2, half, dx, num_x, num_x_static, gate=None)
     out = torch.empty((B, num_x_static, num_x_static), dtype=torch.int32,
                       device=Xs.device)
     half_dx, nx, stream = _launch_args(Xs, half, dx, num_x)
-    g = _gate_int32(gate, Xs.device)
-    gate_ptr = None if g is None else g.data_ptr()
     err = load_library().pcs_vote_histogram(
         Xs.data_ptr(), active.data_ptr(), N, c1.data_ptr(), c2.data_ptr(), B,
-        half_dx.data_ptr(), nx.data_ptr(), num_x_static, out.data_ptr(), gate_ptr,
-        stream)
+        half_dx.data_ptr(), nx.data_ptr(), num_x_static, out.data_ptr(), stream)
     _raise_on(err, "vote_histogram")
-    _count(vote_histogram, g)
+    _count(vote_histogram, Xs.device)
     return out
 
 
-vote_histogram.launches = vote_histogram.gated_launches = 0
-vote_histogram.captured = vote_histogram.captured_gated = 0
-vote_histogram.opened = {}
+vote_histogram.launches = vote_histogram.captured = 0
+vote_histogram.counts = {}
 
 
 def vote_bins_kernel(Xs, c1, c2, half, dx, num_x):

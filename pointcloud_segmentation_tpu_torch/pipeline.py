@@ -3,12 +3,13 @@
 Twin of the JAX package's pipeline.py: filter -> Hough -> drone-to-world
 transform -> floor cutoff -> world-map fusion + intersections.
 `process_frame` runs eagerly, its only host reads the Hough loop's (once a
-round with ``loop="eager"``, none with ``loop="graph"``).
+round with ``loop="eager"``, once a node with ``loop="cond"``).
 `make_process_frame` and `make_process_frame_packed` are the JAX package's
 compiled frame: on a card, a step that captures the whole frame into one
 CUDA graph and replays it once a frame, the world map updated in place in
-the graph's own tensors (the JAX step donates its state); on the CPU the
-same step runs eagerly.
+the graph's own tensors (the JAX step donates its state), the Hough loop's
+rounds and branches conditional nodes that the card decides
+(``loop="cond"``); on the CPU the same step runs eagerly.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 
 from .config import PipelineConfig
 from .geometry import quat_to_rot
+from .ops import hough as H
 from .ops import voting as V
 from .ops.hough import (KERNELS, AxisGroup, SegmentBatch, Voting,
                         direction_tables, extract_lines)
@@ -155,7 +157,8 @@ def _clone_state(state: WorldState) -> WorldState:
 class _Captured(NamedTuple):
     """One captured frame: its graph, its static input (the raw points, the
     position and the quaternion in one flat buffer) and outputs, and the
-    kernel launches it holds, by wrapper: (launches, gated launches)."""
+    kernel launches it holds, by wrapper (those inside conditional nodes
+    included, whether or not a replay runs them)."""
 
     graph: object
     inputs: torch.Tensor
@@ -169,41 +172,46 @@ class FrameStep:
     position, quat_wxyz)`` -> (state', FrameOutput[, scalars]).
 
     On a card, the first call with a raw shape and type captures the frame
-    (preprocess -> Hough with ``loop="graph"`` -> offset correction ->
-    transform -> floor cutoff -> world fusion -> packed scalars) into one
-    `torch.cuda.CUDAGraph`, and every call replays it once.  The world state
-    lives in the step's own tensors (`self.state`): a call with another
-    state copies it in first, as the JAX step takes a donated state, and
-    every call returns `self.state`, updated in place, with the graph's
-    static outputs, which the next replay overwrites: a caller takes what it
-    needs from them before its next call.  Inputs may lie on the host (one
-    flat pinned copy a frame) or on the card.  A replay runs on the step's
-    own stream, which waits for the caller's current stream before and
-    makes it wait after, so work the caller queues after a call sees the
-    frame.
+    (preprocess -> Hough with ``loop="cond"`` ->
+    offset correction -> transform -> floor cutoff -> world fusion ->
+    packed scalars) into one `torch.cuda.CUDAGraph`, and every call replays
+    it once.  The world state lives in the step's own tensors
+    (`self.state`): a call with another state copies it in first, as the
+    JAX step takes a donated state, and every call returns `self.state`,
+    updated in place, with the graph's static outputs, which the next replay
+    overwrites: a caller takes what it needs from them before its next
+    call.  Inputs may lie on the host (one flat pinned copy a frame) or on
+    the card.  A replay runs on the step's own stream, which waits for the
+    caller's current stream before and makes it wait after, so work the
+    caller queues after a call sees the frame.
 
     Capture: the frame is run once on the step's stream (the warm-up, which
     builds the kernels and sets up each library's workspace for that
     stream) and captured on it, both on the state as it is at the call;
     the state is then restored from a copy taken before them, so the first
-    frame is fused once, by its replay.  A capture or replay that fails
-    raises, and a step whose capture failed raises at every later call:
-    nothing falls back to the eager frame.
+    frame is fused once, by its replay.  The warm-up runs only the bodies
+    its frame takes, so the frame is also captured once in
+    ``capture_error_mode="relaxed"`` and thrown away: every body's first
+    launch (a kernel's shared-memory ceiling and occupancy lookup, a
+    library's workspace) happens there, outside the real capture.  Both
+    captures go through `ops.hough.cond_capture`, one at a time in the
+    process.  A capture or replay that fails raises, and a step whose
+    capture failed raises at every later call: nothing falls back to the
+    eager frame.
 
     Launch counts: each replay adds the kernel launches its graph holds to
-    the wrappers' `launches` and `gated_launches`, and its gated launches
-    add their gates to the device counts that `ops.voting.open_launches`
-    reads, so the launches that voted are told apart from those a closed
-    gate stopped.
+    the wrappers' `launches`; the launches that ran (inside conditional
+    nodes only those whose flag held) are a device count,
+    `ops.voting.ran_launches`.
 
-    On the CPU the step is the eager frame with ``loop="graph"``: no graph,
+    On the CPU the step is the eager frame with ``loop="cond"``: no graph,
     no state of its own.  The tables are the step's: one step, one table.
     """
 
     def __init__(self, cfg: PipelineConfig, device, dir_tables: tuple | None = None,
                  packed: bool = True):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = V.pinned(device)
         self.packed = packed
         if dir_tables is None:
             dir_tables = direction_tables(cfg.granularity, self.device, compute_dtype(cfg))
@@ -214,8 +222,8 @@ class FrameStep:
         self.replays = 0
         # one record a captured graph: its key, the seconds of the warm-up and
         # capture, the bytes the capture added to torch.cuda.memory_reserved
-        # (the graph's private pool, with the caching allocator emptied first)
-        # and memory_reserved after it
+        # (the graph's private pool, with the caching allocator emptied first),
+        # memory_reserved after it and the conditional nodes the graph holds
         self.captures: list = []
         self._graphs: dict = {}
         self._failed: BaseException | None = None
@@ -223,7 +231,7 @@ class FrameStep:
 
     def _frame(self, state, raw_points, position, quat_wxyz):
         return process_frame_packed(state, raw_points, position, quat_wxyz, self.cfg,
-                                    self.dir_tables, KERNELS, None, "graph")
+                                    self.dir_tables, KERNELS, None, "cond")
 
     def _result(self, state, out, scalars):
         return (state, out, scalars) if self.packed else (state, out)
@@ -260,15 +268,15 @@ class FrameStep:
                 cap.graph.replay()
             caller.wait_stream(self.stream)
             self.replays += 1
-            for fn, (n, gated) in cap.launches.items():
+            for fn, n in cap.launches.items():
                 fn.launches += n
-                fn.gated_launches += gated
             return self._result(self.state, cap.out, cap.scalars)
 
     def _capture(self, key, state: WorldState, flat: torch.Tensor) -> _Captured:
         """Warm up and capture the frame for `key` on the step's stream (the
         current one here)."""
         t0 = time.perf_counter()
+        V.prepare_counts(self.device)
         if self.state is None:
             self.state = _clone_state(state)
         saved = _clone_state(state)
@@ -286,23 +294,24 @@ class FrameStep:
             return out, scalars
 
         frame()                            # the warm-up
+        with H.cond_capture(torch.cuda.CUDAGraph(), self.stream, "relaxed"):
+            frame()                        # every body's first launch, thrown away
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
         fns = (V.vote_state, V.vote_histogram)
-        before = [(fn.captured, fn.captured_gated) for fn in fns]
+        before = [fn.captured for fn in fns]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self.stream,
-                              capture_error_mode="thread_local"):
+        with H.cond_capture(graph, self.stream, "thread_local") as cc:
             out, scalars = frame()
-        launches = {fn: (fn.captured - n, fn.captured_gated - g)
-                    for fn, (n, g) in zip(fns, before)}
+        launches = {fn: fn.captured - n for fn, n in zip(fns, before)}
         _copy_state(static, saved)         # undo the warm-up's fusion
         cap = _Captured(graph, inputs, out, scalars, launches)
         self._graphs[key] = cap
         after = torch.cuda.memory_reserved(self.device)
         self.captures.append({"key": key, "seconds": time.perf_counter() - t0,
-                              "pool_bytes": after - reserved, "reserved_after": after})
+                              "pool_bytes": after - reserved, "reserved_after": after,
+                              "cond_nodes": cc.nodes})
         return cap
 
 

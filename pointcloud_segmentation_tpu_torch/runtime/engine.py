@@ -29,11 +29,14 @@ The frame's loop (``loop``).  On a card with the kernels the engine runs
 every frame through `pipeline.make_process_frame_packed`: the whole frame is
 one CUDA graph, captured at the first frame and replayed once a frame, the
 world map held in the graph's own tensors and updated in place, and the one
-host read a frame is its four packed scalars.  ``loop="eager"`` runs the
-frame as PyTorch ops instead, the Hough loop reading the host once a round:
-the explicit comparison, and the only loop for any voting but KERNELS
-(``loop="graph"`` with another raises).  On the CPU ``loop`` defaults to
-"eager"; "graph" runs the step's eager body.
+host read a frame is its four packed scalars.  With ``loop="cond"`` (the
+default there) each Hough round and each branch of its update is a
+conditional node of the graph, which the card runs only when its flag
+holds, as the JAX program runs only the rounds and branches it takes.
+``loop="eager"`` runs the frame as PyTorch ops instead, the Hough loop
+reading the host once a round: the explicit comparison, and the only loop
+for any voting but KERNELS ("cond" with another raises).  On the CPU
+``loop`` defaults to "eager"; "cond" runs the step's eager body.
 
 The streaming worker has the JAX engine's two read-back modes.  Deferred (the
 default: ``stream_sync_every`` > 1, no per-frame consumer of the frame's own
@@ -182,9 +185,10 @@ class SegmentationEngine:
         kernels, which `chip_smoke.py` runs on the card to hold the kernels
         against.
 
-        loop: "graph" (the default on a card with voting=KERNELS: one CUDA
-        graph a frame, see the module's docstring) or "eager" (the default
-        otherwise).  "graph" needs voting=KERNELS and raises with any other.
+        loop: "cond" (the default on a card with voting=KERNELS: one CUDA
+        graph a frame, its rounds and branches conditional nodes, see the
+        module's docstring) or "eager" (the default otherwise).  "cond"
+        needs voting=KERNELS and raises with any other.
 
         backend: "torch" (default) or "oracle", the numpy reference on the
         host, which ignores `device` and `voting` and needs no card.
@@ -302,7 +306,7 @@ class SegmentationEngine:
             logger.info("Configuration: %s", json.dumps(cfg.to_dict()))
         self._dtype = compute_dtype(cfg)
         self._npdt = np.float64 if cfg.compute_dtype == "float64" else np.float32
-        self._step = None       # the graph step (pipeline.FrameStep)
+        self._step = None       # the frame step (pipeline.FrameStep)
         if backend == "oracle":
             from .. import oracle
 
@@ -312,17 +316,17 @@ class SegmentationEngine:
             self.loop = None
         else:
             if loop is None:
-                loop = ("graph" if self.device.type == "cuda" and voting is KERNELS
+                loop = ("cond" if self.device.type == "cuda" and voting is KERNELS
                         else "eager")
             if loop not in LOOPS:
                 raise ValueError(f"loop must be one of {LOOPS}, got {loop!r}")
-            if loop == "graph" and voting is not KERNELS:
-                raise ValueError("loop='graph' captures the kernels (voting=KERNELS); "
+            if loop != "eager" and voting is not KERNELS:
+                raise ValueError(f"loop={loop!r} captures the kernels (voting=KERNELS); "
                                  "other voting functions run with loop='eager'")
             self.loop = loop
             self._tables = direction_tables(cfg.granularity, self.device, self._dtype)
             self._state = init_world(cfg, self.device)
-            if loop == "graph":
+            if loop != "eager":
                 self._step = make_process_frame_packed(cfg, self.device, self._tables)
 
     def _make_mailbox(self):

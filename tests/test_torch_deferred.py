@@ -266,9 +266,31 @@ def test_engine_streaming_deferred_checkpoints(frames, sync, tmp_path):
     saves = []
     orig = eng.save_checkpoint
     eng.save_checkpoint = lambda path: (saves.append(eng.frames_processed), orig(path))
+    # The gate waits for the flusher too: a flush checkpoints with the
+    # worker's frames_processed at that moment, so a flusher that lagged two
+    # frames behind would take the flush of frames 4-6 at 8 and cover both
+    # multiples of 4 with one save.
+    handed, backfilled = [0], [0]
+    orig_flush, orig_backfill = eng._flush_pending, eng._backfill_batch
+
+    def flush_pending():
+        handed[0] += bool(eng._pending)
+        orig_flush()
+
+    def backfill_batch(batch):
+        vals = orig_backfill(batch)
+        backfilled[0] += 1
+        return vals
+
+    eng._flush_pending, eng._backfill_batch = flush_pending, backfill_batch
     eng.start()
     for fr in frames:
         submit_and_wait(eng, fr)
+        # a full batch handed to the flusher, and every handed batch read
+        deadline = time.time() + 60.0
+        while ((len(eng._pending) >= eng.stream_sync_every or handed[0] != backfilled[0])
+               and time.time() < deadline):
+            time.sleep(0.002)
     eng.stop()
     assert os.path.exists(ckpt)
     # batches end at frames 3, 6 and 8, and the worker may be a frame ahead

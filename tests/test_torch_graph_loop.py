@@ -1,16 +1,19 @@
-"""The port's Hough loop in the JAX package's fixed-capacity form, and the
-frame step that a card captures into one CUDA graph.
+"""The port's Hough loop in the form a card captures into one CUDA graph,
+and the frame step that captures it.
 
-On the CPU, ``extract_lines(loop="graph")`` runs the very rounds a graph
-captures (masked, every branch issued, no host read), so it is held bit for
-bit against ``loop="eager"`` (the same `_round`, each update sized on the
-host) in carry and lazy mode over every branch of the loop, and both
-against the JAX package's `extract_lines` (integers exact, endpoints within
-5e-3, README §Precision contract).  The fixed-width compaction is held against the JAX
-one column for column.  `make_process_frame_packed` runs eagerly here and is
-held against the JAX step over a short replay: scalars exact, world
-endpoints within 2e-2, the golden fixtures' tolerance.  Inputs are made from
-numpy seeds with tests/test_torch_hough.py's helpers.
+On the CPU, ``extract_lines(loop="cond")`` runs the very bodies a graph
+captures, each `run_if` node reading its flag on the host as the card's IF
+node does at replay, so it is held bit for bit against ``loop="eager"``
+(the same `_round`, each update sized on the host) in carry and lazy mode
+over every branch of the loop, and against the JAX package's
+`extract_lines` (integers exact, endpoints within 5e-3, README §Precision
+contract).  It runs the eager loop's rounds and makes its voting calls,
+call for call.  The fixed-width compaction is held against the JAX one
+column for column.  `make_process_frame_packed` runs eagerly here and is
+held against the JAX step over a short replay with a NaN frame in it:
+scalars exact, world endpoints within 2e-2, the golden fixtures'
+tolerance.  Inputs are made from numpy seeds with
+tests/test_torch_hough.py's helpers.
 """
 
 import numpy as np
@@ -121,20 +124,19 @@ class Rounds:
         return res, self.n
 
 
-class Opened:
-    """A voting function that records each call whose gate was open (None or
-    nonzero): "table" for a call on the whole direction table (the initial
-    state, a rebuild), else the rows of a re-exam's gathered table."""
+class Calls:
+    """A voting function that records each call: "table" for a call on the
+    whole direction table (the initial state, a rebuild), else the rows of a
+    re-exam's gathered table."""
 
     def __init__(self, fn):
         self.fn, self.calls, self.table = fn, [], None
 
-    def __call__(self, Xs, active, c1, c2, half, dx, num_x, nxs, gate=None):
+    def __call__(self, Xs, active, c1, c2, half, dx, num_x, nxs):
         if self.table is None:
             self.table = c1.data_ptr()       # the first call: the initial state
-        if gate is None or bool(gate):
-            self.calls.append("table" if c1.data_ptr() == self.table else c1.shape[0])
-        return self.fn(Xs, active, c1, c2, half, dx, num_x, nxs, gate)
+        self.calls.append("table" if c1.data_ptr() == self.table else c1.shape[0])
+        return self.fn(Xs, active, c1, c2, half, dx, num_x, nxs)
 
 
 # ---------------------------------------------------------------- compaction
@@ -190,18 +192,18 @@ def test_removed_cell_keys_match_jax_at_sub_chunk(n_rem):
 @pytest.mark.parametrize("mode", ["carry", "lazy"])
 @pytest.mark.parametrize("case", CASES)
 def test_graph_loop_equals_eager_and_jax(case, mode, monkeypatch):
-    """loop="graph" == loop="eager" bit for bit; both == JAX within the
-    precision contract; and the rounds: the eager loop runs at most
-    round_count(cfg), the graph loop exactly that many."""
+    """The captured form, loop="cond", == loop="eager" bit for bit; both ==
+    JAX within the precision contract; and the rounds: the cond loop runs
+    the eager loop's, at most round_count(cfg), the rounds it unrolls."""
     pts, cfg = cloud_case(case)
     cfg = cfg.replace(voting=mode)
     p, v = torch_inputs(pts, cfg)
     rounds = Rounds(monkeypatch)
     re, n_eager = rounds.run(p, v, cfg, loop="eager")
-    rg, n_graph = rounds.run(p, v, cfg, loop="graph")
+    rg, n_cond = rounds.run(p, v, cfg, loop="cond")
     assert_bit_equal(rg, re)
     R = TH.round_count(cfg)
-    assert n_graph == R and n_eager <= R
+    assert n_cond == n_eager <= R
     rj = extract_lines_jit(jnp.asarray(p.numpy()), jnp.asarray(v.numpy()), cfg)
     assert_same_extraction(rj, rg)
     status, nlines = int(rg.status), int(rg.nlines)
@@ -254,8 +256,8 @@ def test_every_suspect_tier_graph_equals_eager(cap, monkeypatch):
     does (one 128-row tier, then the rebuild).  These scenes' rounds have
     either no suspect or all 1,408, so at 2048 the 256-row tier and the
     1,408-row tier are taken, and at 128 the 128-row tier and the rebuild.
-    In every scene both loops open the same gates in the same order and
-    give the same lines, equal to carry's."""
+    In every scene the cond loop makes the eager loop's vote_state calls in
+    the same order and gives the same lines, equal to carry's."""
     monkeypatch.setattr(TH, "_SUSPECT_CAP", cap)
     cfg = default_config(granularity=4, opt_nlines=8, opt_minvotes=10, min_pca_coeff=0.8,
                          shapes=StaticShapes(max_raw_points=4096, max_points=2048))
@@ -264,16 +266,16 @@ def test_every_suspect_tier_graph_equals_eager(cap, monkeypatch):
     for seed in SUSPECT_SCENES:
         p, v = torch_inputs(suspect_scene(seed), cfg)
         runs = {}
-        for loop in ("eager", "graph"):
-            st = Opened(V.vote_state)
+        for loop in ("eager", "cond"):
+            st = Calls(V.vote_state)
             res = TH.extract_lines(p, v, cfg.replace(voting="lazy"),
                                    voting=TH.Voting(st, V.vote_histogram), loop=loop)
             runs[loop] = (res, st.calls)
-        (re, calls_e), (rg, calls_g) = runs["eager"], runs["graph"]
+        (re, calls_e), (rg, calls_g) = runs["eager"], runs["cond"]
         assert_bit_equal(rg, re)
         assert calls_e == calls_g and calls_e[0] == "table"
         seen |= set(calls_e[1:])
-        rc = TH.extract_lines(p, v, cfg.replace(voting="carry"), loop="graph")
+        rc = TH.extract_lines(p, v, cfg.replace(voting="carry"), loop="cond")
         assert_bit_equal(rg, rc)
     assert seen == want, (want, seen)
 
@@ -282,70 +284,25 @@ def test_every_suspect_tier_graph_equals_eager(cap, monkeypatch):
 
 
 def test_graph_loop_refuses_plain_and_shards():
+    """The captured form refuses what a capture cannot hold, before any
+    collective; there is no other captured form (the masked "graph" loop
+    is gone)."""
     pts, cfg = cloud_case("scene0")
     p, v = torch_inputs(pts, cfg)
     with pytest.raises(ValueError, match="plain"):
-        TH.extract_lines(p, v, cfg, voting=TH.PLAIN, loop="graph")
+        TH.extract_lines(p, v, cfg, voting=TH.PLAIN, loop="cond")
     shard = TH.AxisGroup(None, 0, 2)
     tables = TH.direction_tables(cfg.granularity, "cpu")
     with pytest.raises(ValueError, match="shard"):
-        TH.extract_lines(p, v, cfg, tables, shard=shard, loop="graph")
-    with pytest.raises(ValueError, match="loop"):
-        TH.extract_lines(p, v, cfg, loop="while")
+        TH.extract_lines(p, v, cfg, tables, shard=shard, loop="cond")
+    for loop in ("while", "graph"):
+        with pytest.raises(ValueError, match="loop"):
+            TH.extract_lines(p, v, cfg, loop=loop)
+        with pytest.raises(ValueError, match="loop"):
+            SegmentationEngine(cfg, device="cpu", loop=loop)
     assert shard.collectives == 0
     with pytest.raises(ValueError, match="KERNELS"):
-        SegmentationEngine(cfg, device="cpu", voting=TH.PLAIN, loop="graph")
-
-
-# ---------------------------------------------------------------- the gate
-
-
-def test_open_launches_count_the_gates_that_read_open(monkeypatch):
-    """The counts behind open_launches: an ungated launch voted, a gated one
-    voted when its gate read nonzero; reset_counts zeroes the device counts
-    in place (a captured graph keeps adding to the same tensor)."""
-    fn = V.vote_state
-    # a CPU build of torch cannot ask whether a stream is capturing
-    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
-    for attr in ("launches", "gated_launches"):
-        monkeypatch.setattr(fn, attr, 0)
-    monkeypatch.setattr(fn, "opened", {})
-    for gate in (None, torch.tensor([1], dtype=torch.int32),
-                 torch.tensor([0], dtype=torch.int32), torch.tensor([3], dtype=torch.int32)):
-        V._count(fn, gate)
-    counter = fn.opened[torch.device("cpu")]
-    assert (fn.launches, fn.gated_launches, V.open_launches(fn)) == (4, 3, 3)
-    V.reset_counts()
-    assert (fn.launches, V.open_launches(fn)) == (0, 0)
-    assert fn.opened[torch.device("cpu")] is counter
-
-
-@pytest.mark.parametrize("fn", ["vote_state", "vote_histogram"])
-def test_plain_versions_with_a_gate(fn):
-    """Gate 1 (bool or int) computes what no gate computes; gate 0 votes
-    nothing and returns zeros of the output's shape, the value its caller's
-    selection discards."""
-    rng = np.random.default_rng(5)
-    X = torch.from_numpy(rng.uniform(-1.2, 1.2, (300, 3)).astype(np.float32))
-    act = torch.from_numpy(rng.random(300) < 0.8)
-    _, c1, c2 = (torch.from_numpy(t.astype(np.float32)) for t in hough_space(2))
-    half, dx, nx = torch.tensor(1.8), torch.tensor(np.float32(default_config().opt_dx)), \
-        torch.tensor(60, dtype=torch.int32)
-    plain = getattr(V, fn + "_plain")
-    wrapper = getattr(V, fn)
-    want = plain(X, act, c1, c2, half, dx, nx, 79)
-    for one in (torch.tensor(1, dtype=torch.int32), torch.tensor(True)):
-        for f in (plain, wrapper):
-            got = f(X, act, c1, c2, half, dx, nx, 79, one)
-            for g, w in zip(got if fn == "vote_state" else [got],
-                            want if fn == "vote_state" else [want]):
-                assert torch.equal(g, w)
-    for zero in (torch.tensor(0, dtype=torch.int32), torch.tensor(False)):
-        got = wrapper(X, act, c1, c2, half, dx, nx, 79, zero)
-        for g, w in zip(got if fn == "vote_state" else [got],
-                        want if fn == "vote_state" else [want]):
-            assert g.shape == w.shape and g.dtype == w.dtype and not g.any()
-    assert int((want[0] if fn == "vote_state" else want).sum()) > 0
+        SegmentationEngine(cfg, device="cpu", voting=TH.PLAIN, loop="cond")
 
 
 # ---------------------------------------------------------------- the frame step
@@ -356,21 +313,29 @@ def replay_frames(n):
     return simulate_trajectory(OBS_TESTS_SCENE, poses, TofSpec(noise_frac=0.001), seed=7)
 
 
+def raw_of(fr, cfg):
+    raw = np.full((cfg.shapes.max_raw_points, 3), np.nan, np.float32)
+    raw[: len(fr.points)] = fr.points
+    return raw
+
+
 @pytest.mark.parametrize("voting", ["carry", "lazy"])
 def test_frame_step_matches_jax_step(voting):
-    """The port's make_process_frame_packed (eager on the CPU) against the
-    JAX one over the golden g2 replay: the packed scalars exact each frame,
-    the world map's endpoints within 2e-2 at the end; make_process_frame
-    gives the same frame without the scalars."""
+    """The port's make_process_frame_packed (eager on the CPU, its Hough
+    loop loop="cond") against the JAX one over the golden g2 replay with a
+    NaN frame third: the packed scalars exact each frame, the world map's
+    endpoints within 2e-2 at the end; make_process_frame gives the same
+    frame without the scalars."""
     cfg = default_config(granularity=2, voting=voting, shapes=StaticShapes(
         max_raw_points=4096, max_points=2048, max_world_segments=32))
     jstep = jax_make_process_frame_packed(cfg)
     step = make_process_frame_packed(cfg, "cpu")
     plain_step = make_process_frame(cfg, "cpu")
     js, ts, us = jax_init_world(cfg), init_world(cfg, "cpu"), init_world(cfg, "cpu")
-    for fr in replay_frames(6):
-        raw = np.full((cfg.shapes.max_raw_points, 3), np.nan, np.float32)
-        raw[: len(fr.points)] = fr.points
+    frames = replay_frames(6)
+    seq = [(raw_of(fr, cfg), fr) for fr in frames]
+    seq.insert(2, (np.full_like(seq[0][0], np.nan), frames[2]))
+    for k, (raw, fr) in enumerate(seq):
         pos = np.asarray(fr.position, np.float32)
         quat = np.asarray(fr.quat_wxyz, np.float32)
         js, _, jsc = jstep(js, jnp.asarray(raw), jnp.asarray(pos), jnp.asarray(quat))
@@ -381,6 +346,8 @@ def test_frame_step_matches_jax_step(voting):
         assert sc.tolist() == [int(uout.world_count), int(uout.nlines), int(uout.status),
                                int(uout.overflow)]
         assert all(torch.equal(a, b) for a, b in zip(ts, us))
+        if k == 2:
+            assert sc.tolist()[1:3] == [0, 1]          # the NaN frame: degenerate
     n = int(ts.count)
     assert n == int(js.count) >= 3
     for f in ("a", "b", "t_min", "t_max"):
@@ -389,16 +356,14 @@ def test_frame_step_matches_jax_step(voting):
 
 
 def test_frame_step_equals_eager_frame():
-    """On the CPU the step is the eager frame with loop="graph": the same
+    """On the CPU the step is the eager frame with loop="cond": the same
     world map, outputs and scalars as process_frame_packed's eager loop."""
     cfg = default_config(granularity=3, voting="lazy", shapes=StaticShapes(
         max_raw_points=4096, max_points=2048, max_world_segments=32))
     step = make_process_frame_packed(cfg, "cpu")
     gs, es = init_world(cfg, "cpu"), init_world(cfg, "cpu")
     for fr in replay_frames(4):
-        raw = np.full((cfg.shapes.max_raw_points, 3), np.nan, np.float32)
-        raw[: len(fr.points)] = fr.points
-        args = (torch.from_numpy(raw), torch.tensor(fr.position, dtype=torch.float32),
+        args = (torch.from_numpy(raw_of(fr, cfg)), torch.tensor(fr.position, dtype=torch.float32),
                 torch.tensor(fr.quat_wxyz, dtype=torch.float32))
         gs, gout, gsc = step(gs, *args)
         es, eout, esc = process_frame_packed(es, *args, cfg)
@@ -408,19 +373,21 @@ def test_frame_step_equals_eager_frame():
 
 
 def test_engine_graph_loop_on_the_cpu_equals_eager(tmp_path):
-    """The engine with loop="graph" on the CPU (the step's eager body)
-    against loop="eager": records and world map equal, through a checkpoint
-    resume and a batched replay."""
+    """The engine with loop="cond" on the CPU (the step's eager body)
+    against loop="eager": records and world map equal, through a pipelined
+    replay, a checkpoint resume and a batched replay."""
     cfg = default_config(granularity=2, shapes=StaticShapes(
         max_raw_points=4096, max_points=2048, max_world_segments=32))
     frames = replay_frames(6)
-    g = SegmentationEngine(cfg, device="cpu", loop="graph")
+    g = SegmentationEngine(cfg, device="cpu", loop="cond")
     e = SegmentationEngine(cfg, device="cpu")
-    assert (g.loop, e.loop) == ("graph", "eager")
-    rg, re = g.run_replay(frames[:3]), e.run_replay(frames[:3])
+    assert (g.loop, e.loop) == ("cond", "eager")
+    rg, re = g.run_replay(frames[:2]), e.run_replay(frames[:2])
+    rg += g.run_replay(frames[2:3], pipelined=True)
+    re += e.run_replay(frames[2:3])
     ckpt = str(tmp_path / "c.npz")
     g.save_checkpoint(ckpt)
-    resumed = SegmentationEngine(cfg, device="cpu", loop="graph")
+    resumed = SegmentationEngine(cfg, device="cpu", loop="cond")
     resumed.load_checkpoint(ckpt)
     rg += resumed.run_replay(frames[3:], batch=2)
     re += e.run_replay(frames[3:])

@@ -172,9 +172,9 @@ class Counted:
         self.fn = fn
         self.shapes = collections.Counter()
 
-    def __call__(self, Xs, active, c1, c2, half, dx, num_x, num_x_static, gate=None):
+    def __call__(self, Xs, active, c1, c2, half, dx, num_x, num_x_static):
         self.shapes[(c1.shape[0], Xs.shape[0], num_x_static)] += 1
-        return self.fn(Xs, active, c1, c2, half, dx, num_x, num_x_static, gate)
+        return self.fn(Xs, active, c1, c2, half, dx, num_x, num_x_static)
 
 
 def recall(scene, segs) -> int:
