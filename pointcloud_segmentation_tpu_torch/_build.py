@@ -1,8 +1,9 @@
 """Builds the CUDA sources under ``csrc/`` with nvcc and loads them with ctypes.
 
-One library, from two sources in one nvcc call: ``voting.cu`` (the voting
-kernels) and ``graph_cond.cu`` (the conditional nodes of the captured
-frame, ops/hough.py `run_if`).  It has a plain C interface (no PyTorch
+One library, from three sources in one nvcc call: ``voting.cu`` (the voting
+kernels), ``graph_cond.cu`` (the conditional nodes of the captured
+frame, ops/hough.py `run_if`) and ``trace.cu`` (the tracer's device
+stamps, trace.py).  It has a plain C interface (no PyTorch
 headers), so nvcc builds it in seconds.  It is built at first use into
 ``build/torch_kernels/`` beside the package, keyed by a hash of the sources
 and the flags, so unchanged sources are built once per checkout.  Nothing
@@ -26,6 +27,7 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCE = _CSRC / "voting.cu"
 _GRAPH_COND = _CSRC / "graph_cond.cu"
+_TRACE = _CSRC / "trace.cu"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 
 NVCC_FLAGS = (
@@ -53,6 +55,12 @@ _SIGNATURES = {
     "pcs_if_end": (_P,),
     # out: a new stream
     "pcs_stream_create": (ctypes.POINTER(ctypes.c_void_p),),
+    # capturing stream, out: the nodes its graph holds so far
+    "pcs_capture_nodes": (_P, ctypes.POINTER(ctypes.c_ulonglong)),
+    # rows, counter, n_rows, width, slot, stream
+    "pcs_trace_stamp": (_P, _P, _I, _I, _I, _P),
+    # out (one int64 on the card), stream
+    "pcs_trace_now": (_P, _P),
 }
 
 
@@ -90,7 +98,7 @@ def load_library(source: Path = _SOURCE) -> ctypes.CDLL:
     """Build (if needed) and load the library; raises on failure.  `source`
     may name another copy of ``voting.cu`` with the same C entries, such as
     an earlier version to time beside this one (built with this
-    ``graph_cond.cu``)."""
+    ``graph_cond.cu`` and ``trace.cu``)."""
     with _lock:
         lib = _loaded.get(source)
         if lib is None:
@@ -99,7 +107,7 @@ def load_library(source: Path = _SOURCE) -> ctypes.CDLL:
 
 
 def _build_and_load(source: Path) -> ctypes.CDLL:
-    sources = (source, _GRAPH_COND)
+    sources = (source, _GRAPH_COND, _TRACE)
     path = _library_path(sources)
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -332,7 +332,13 @@ def cmd_inspect(args) -> int:
     conditional nodes included) and run on the card (each of which voted).
     The engine's default loop runs (one graph a frame on a card, its rounds
     and branches conditional nodes); ``--loop eager`` profiles the eager
-    frame instead.  On the CPU the card's fields are left out."""
+    frame instead.  On the CPU the card's fields are left out.
+
+    The tracer (trace.py) is on from before the warm-up frame, so the
+    captured graph holds its stamps: beside the profiler's figures the
+    frame's ms by stage (``device_stage_ms`` on a card, the stamps' own
+    clock, which the profiler slows; ``host_stage_ms`` on the CPU) and its
+    live Hough rounds.  The eager loop stamps no stage."""
     import contextlib
     import time
 
@@ -340,6 +346,7 @@ def cmd_inspect(args) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from . import trace
     from .io.scene import trajectory_poses
     from .io.simulator import TofSpec, simulate_trajectory
     from .ops import voting as V
@@ -363,14 +370,20 @@ def cmd_inspect(args) -> int:
     # captures the graph outside any profile
     with profiler():
         pass
-    eng.run_replay(frames[-2:-1])
-    V.reset_counts()
-    with profiler() as prof:
-        t0 = time.perf_counter()
-        (rec,) = eng.run_replay(frames[-1:])
-        if on_card:
-            torch.cuda.synchronize(eng.device)
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    trace.enable()
+    try:
+        eng.run_replay(frames[-2:-1])
+        V.reset_counts()
+        trace.enable()                   # the inspected frame alone
+        with profiler() as prof:
+            t0 = time.perf_counter()
+            (rec,) = eng.run_replay(frames[-1:])
+            if on_card:
+                torch.cuda.synchronize(eng.device)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        stamped = trace.export()["frames"]
+    finally:
+        trace.disable()
     counts, device_us = {}, None
     if on_card:
         events = prof.key_averages()
@@ -397,6 +410,11 @@ def cmd_inspect(args) -> int:
         "host_reads": counts.get("host_reads"),
         "device_us": device_us,
     }
+    for f in stamped[-1:]:
+        ns = f.get("device_ns", f["stamps"])
+        clock = "device" if "device_ns" in f else "host"
+        info[f"{clock}_stage_ms"] = {name: (e - s) / 1e6 for name, s, e in trace.stages(ns)}
+        info["live_rounds"] = f["live_rounds"]
     if on_card:
         for fn in (V.vote_state, V.vote_histogram):
             info[f"{fn.__name__}_launches"] = fn.launches

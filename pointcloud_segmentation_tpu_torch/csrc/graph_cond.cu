@@ -24,6 +24,10 @@
 // bodies (PyTorch's torch.cuda.Stream() hands out a fixed pool of streams
 // round-robin, so one of those would in time be a frame step's).
 //
+// pcs_capture_nodes counts the nodes of the graph a stream is capturing so
+// far (an IF node counts one; its body is counted when its own capture
+// ends), so a capture can report how many nodes its graph holds.
+//
 // CUDA 12.4 or later: conditional handles, cudaGraphAddNode with conditional
 // parameters and cudaStreamBeginCaptureToGraph.  Each entry returns a CUDA
 // error code (0 on success), or kNotCapturing.
@@ -86,4 +90,17 @@ extern "C" int pcs_stream_create(void** stream) {
 extern "C" int pcs_if_end(void* body_stream) {
   cudaGraph_t body;
   return static_cast<int>(cudaStreamEndCapture(static_cast<cudaStream_t>(body_stream), &body));
+}
+
+extern "C" int pcs_capture_nodes(void* stream, unsigned long long* n) {
+  cudaStreamCaptureStatus status;
+  cudaGraph_t graph;
+  cudaError_t err = cudaStreamGetCaptureInfo(static_cast<cudaStream_t>(stream), &status,
+                                             nullptr, &graph, nullptr, nullptr);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (status != cudaStreamCaptureStatusActive) return kNotCapturing;
+  size_t count = 0;
+  err = cudaGraphGetNodes(graph, nullptr, &count);
+  *n = count;
+  return static_cast<int>(err);
 }

@@ -60,6 +60,7 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from ..config import PipelineConfig
 from ..geometry import canonicalize_direction
 from ..sphere import hough_space
@@ -296,12 +297,25 @@ _capturing = threading.local()   # .capture: this thread's CondCapture, if any
 
 class CondCapture:
     """One capture's conditional nodes: the body streams of its card, the
-    nesting depth of the body being captured and `nodes`, the nodes added
-    so far."""
+    nesting depth of the body being captured, `nodes`, the conditional nodes
+    added so far, and `graph_nodes`, the nodes of the bodies captured so far
+    (the capturer adds the graph's own, `captured_nodes`, before it ends)."""
 
     def __init__(self, device, streams):
         self.device, self.streams = device, streams
-        self.depth = self.nodes = 0
+        self.depth = self.nodes = self.graph_nodes = 0
+
+
+def captured_nodes(stream) -> int:
+    """The nodes of the graph `stream` is capturing so far, an IF node
+    counting one (csrc/graph_cond.cu)."""
+    from .._build import load_library
+
+    n = ctypes.c_ulonglong()
+    err = load_library().pcs_capture_nodes(stream.cuda_stream, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"counting a capture's nodes failed (error {err})")
+    return n.value
 
 
 def _streams_of(device) -> list:
@@ -396,6 +410,7 @@ def run_if(flag, body) -> None:
     try:
         with torch.cuda.stream(stream):
             body()
+        cap.graph_nodes += captured_nodes(stream)
     finally:
         cap.depth -= 1
         err = lib.pcs_if_end(stream.cuda_stream)
@@ -674,8 +689,8 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
     slot_iota = torch.arange(L, device=dev)
     P2 = Xs + shift                                   # inliers in input frame
 
-    def _round(s: _LoopState, loop: str):
-        """One round of the JAX loop's body, masked by s.live: a round that
+    def _round(s: _LoopState, loop: str, rnd: int):
+        """Round `rnd` of the JAX loop's body, masked by s.live: a round that
         is not live changes nothing.  Returns (the next state, its branch):
         the branch is a device tensor, or in the eager loop the host int the
         round read to size its update (0: the loop ends, and the update is
@@ -757,6 +772,7 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
         seg_len = torch.sqrt(((p2g - p1g) ** 2).sum())
         min_nb = (2.0 * closest * seg_len / min_nb_denom).to(torch.int32)
         accept = gate_r & (pca_coeff > cfg.min_pca_coeff) & (nv > min_nb)
+        trace.stamp("round[{}].gates.end", rnd)
 
         failx = s.live & ok3 & bx_zero
         proceed = s.live & ok3 & ~bx_zero
@@ -827,20 +843,30 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
         s = s._replace(**{f: getattr(s, f).clone()          # one tensor each
                           for f in ("it", "active", "nlines", "nout", "live")})
         run_if(live0, lambda: store(vs, vstate_init(active0)))
+        trace.stamp("hough.init.end")
 
         def one_round():
-            nxt, _ = _round(s, loop)
+            # run_if runs its body at once: `rnd` is the loop's round
+            trace.stamp("round[{}].begin", rnd)
+            nxt, _ = _round(s, loop, rnd)
             store(_loop_tensors(s), _loop_tensors(nxt))
+            trace.stamp("round[{}].end", rnd)
 
-        for _ in range(round_count(cfg)):
+        for rnd in range(round_count(cfg)):
             run_if(s.live, one_round)
     else:
         s = start(None)
+        branch = 0
         if bool(live0):                # host read: round 0's condition
             s = s._replace(vstate=vstate_init(active0))
             branch = 1
-            while branch != 0:
-                s, branch = _round(s, loop)
+        trace.stamp("hough.init.end")
+        rnd = 0
+        while branch != 0:
+            trace.stamp("round[{}].begin", rnd)
+            s, branch = _round(s, loop, rnd)
+            trace.stamp("round[{}].end", rnd)
+            rnd += 1
 
     nlines = torch.where(s.fail, 0, s.nlines).to(torch.int32)
     status = torch.where(degenerate, 1,

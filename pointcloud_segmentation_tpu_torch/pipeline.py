@@ -20,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import trace
 from .config import PipelineConfig
 from .geometry import quat_to_rot
 from .ops import hough as H
@@ -99,6 +100,7 @@ def frame_segments(raw_points: torch.Tensor, position: torch.Tensor,
     Hough loop's form (ops/hough.extract_lines)."""
     raw_points = raw_points.to(compute_dtype(cfg))
     filtered, fvalid, fcount = preprocess(raw_points, cfg)
+    trace.stamp("preproc.end")
     hough = extract_lines(filtered, fvalid, cfg, dir_tables, voting, shard, loop)
 
     frame_segs = hough.segments
@@ -106,6 +108,7 @@ def frame_segments(raw_points: torch.Tensor, position: torch.Tensor,
         frame_segs = surface_offset_correction(frame_segs)
     segs = transform_segments(frame_segs, position, quat_wxyz)
     segs = height_cutoff(segs, cfg.floor_trim_height)
+    trace.stamp("segments.end")
     return filtered, fvalid, fcount, hough, segs
 
 
@@ -121,6 +124,7 @@ def process_frame(state: WorldState, raw_points: torch.Tensor,
         raw_points, position, quat_wxyz, cfg, dir_tables, voting, shard, loop)
 
     state, slots = world_step(state, segs, cfg)
+    trace.stamp("world.end")
 
     overflow = (segs.valid & (slots == -1)).sum().to(torch.int32)
     out = FrameOutput(
@@ -156,15 +160,17 @@ def _clone_state(state: WorldState) -> WorldState:
 
 class _Captured(NamedTuple):
     """One captured frame: its graph, its static input (the raw points, the
-    position and the quaternion in one flat buffer) and outputs, and the
+    position and the quaternion in one flat buffer) and outputs, the
     kernel launches it holds, by wrapper (those inside conditional nodes
-    included, whether or not a replay runs them)."""
+    included, whether or not a replay runs them), and the ring its stamps
+    write (None when it was captured with tracing off and holds none)."""
 
     graph: object
     inputs: torch.Tensor
     out: FrameOutput
     scalars: torch.Tensor
     launches: dict
+    ring: trace.Ring | None
 
 
 class FrameStep:
@@ -204,8 +210,15 @@ class FrameStep:
     nodes only those whose flag held) are a device count,
     `ops.voting.ran_launches`.
 
+    Tracing (trace.py): a frame captured while tracing is on holds a stamp
+    kernel at each stage boundary, writing a ring made before the capture,
+    and every replay of it notes its frame in the ring; one captured with
+    tracing off holds none.  Each call is the host span ``step.launch``.
+
     On the CPU the step is the eager frame with ``loop="cond"``: no graph,
-    no state of its own.  The tables are the step's: one step, one table.
+    no state of its own; with tracing on its stages stamp the host clock
+    into the step's own ring.  The tables are the step's: one step, one
+    table.
     """
 
     def __init__(self, cfg: PipelineConfig, device, dir_tables: tuple | None = None,
@@ -223,11 +236,14 @@ class FrameStep:
         # one record a captured graph: its key, the seconds of the warm-up and
         # capture, the bytes the capture added to torch.cuda.memory_reserved
         # (the graph's private pool, with the caching allocator emptied first),
-        # memory_reserved after it and the conditional nodes the graph holds
+        # memory_reserved after it, the conditional nodes the graph holds, all
+        # its nodes (its bodies' included) and its stamp kernels (trace.py; 0
+        # when captured with tracing off)
         self.captures: list = []
         self._graphs: dict = {}
         self._failed: BaseException | None = None
         self._lock = threading.Lock()
+        self._host_ring: trace.Ring | None = None    # the CPU step's stamps
 
     def _frame(self, state, raw_points, position, quat_wxyz):
         return process_frame_packed(state, raw_points, position, quat_wxyz, self.cfg,
@@ -238,10 +254,23 @@ class FrameStep:
 
     def __call__(self, state: WorldState, raw_points: torch.Tensor,
                  position: torch.Tensor, quat_wxyz: torch.Tensor):
-        if not self.on_card:
+        with trace.span("step.launch"):
+            if self.on_card:
+                return self._replay(state, raw_points, position, quat_wxyz)
+            ring = None
+            if trace.enabled():
+                if self._host_ring is None:
+                    self._host_ring = trace.Ring()
+                ring = self._host_ring
             dev = self.device
-            return self._result(*self._frame(state, raw_points.to(dev),
-                                             position.to(dev), quat_wxyz.to(dev)))
+            with trace.stamping(ring):
+                trace.stamp("frame.begin")
+                res = self._frame(state, raw_points.to(dev), position.to(dev),
+                                  quat_wxyz.to(dev))
+                trace.stamp("frame.end")
+            return self._result(*res)
+
+    def _replay(self, state, raw_points, position, quat_wxyz):
         with self._lock, torch.cuda.device(self.device):
             if self._failed is not None:
                 raise RuntimeError("this frame step's capture failed; it does not "
@@ -267,6 +296,8 @@ class FrameStep:
                 cap.inputs.copy_(flat, non_blocking=True)
                 cap.graph.replay()
             caller.wait_stream(self.stream)
+            if cap.ring is not None:
+                cap.ring.replayed(self.replays)
             self.replays += 1
             for fn, n in cap.launches.items():
                 fn.launches += n
@@ -285,16 +316,20 @@ class FrameStep:
         shape = key[0]
         n_raw = inputs.numel() - 7
         static = self.state
+        ring = trace.Ring(self.device) if trace.enabled() else None
 
         def frame():
+            trace.stamp("frame.begin")
             raw = inputs[:n_raw].view(shape)
             new, out, scalars = self._frame(static, raw, inputs[n_raw:n_raw + 3],
                                             inputs[n_raw + 3:])
             _copy_state(static, new)       # the map updates in place
+            trace.stamp("frame.end")
             return out, scalars
 
-        frame()                            # the warm-up
-        with H.cond_capture(torch.cuda.CUDAGraph(), self.stream, "relaxed"):
+        frame()                            # the warm-up (no ring: no stamps)
+        with H.cond_capture(torch.cuda.CUDAGraph(), self.stream, "relaxed"), \
+                trace.stamping(ring):
             frame()                        # every body's first launch, thrown away
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
@@ -302,16 +337,19 @@ class FrameStep:
         fns = (V.vote_state, V.vote_histogram)
         before = [fn.captured for fn in fns]
         graph = torch.cuda.CUDAGraph()
-        with H.cond_capture(graph, self.stream, "thread_local") as cc:
+        stamps0 = ring.captured if ring is not None else 0
+        with H.cond_capture(graph, self.stream, "thread_local") as cc, trace.stamping(ring):
             out, scalars = frame()
+            cc.graph_nodes += H.captured_nodes(self.stream)
         launches = {fn: fn.captured - n for fn, n in zip(fns, before)}
         _copy_state(static, saved)         # undo the warm-up's fusion
-        cap = _Captured(graph, inputs, out, scalars, launches)
+        cap = _Captured(graph, inputs, out, scalars, launches, ring)
         self._graphs[key] = cap
         after = torch.cuda.memory_reserved(self.device)
         self.captures.append({"key": key, "seconds": time.perf_counter() - t0,
                               "pool_bytes": after - reserved, "reserved_after": after,
-                              "cond_nodes": cc.nodes})
+                              "cond_nodes": cc.nodes, "graph_nodes": cc.graph_nodes,
+                              "stamps": (ring.captured - stamps0) if ring is not None else 0})
         return cap
 
 

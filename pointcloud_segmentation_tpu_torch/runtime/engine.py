@@ -79,7 +79,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import _build, native
+from .. import _build, native, trace
 from .._malloc import cap_malloc_arenas as _cap_malloc_arenas
 from ..config import VERBOSE_INFO, VERBOSE_NONE, PipelineConfig
 from ..convert import (read_checkpoint, read_oracle_checkpoint,
@@ -300,6 +300,7 @@ class SegmentationEngine:
         self._stall_read_ms = 0.0
         self._read_started_mono: Optional[float] = None
         self._atexit_registered = False
+        trace.watch(self)                # its mailbox counts, at trace.export()
 
         # configuration dump, as the node logs at startup (node.cpp:245-257)
         if cfg.verbose_level > VERBOSE_NONE:
@@ -364,18 +365,25 @@ class SegmentationEngine:
         """Streaming input: latest-wins; stale unprocessed frames are dropped."""
         with self._submit_lock:     # server connections submit concurrently
             self.frames_submitted += 1
+        trace.mark("runtime.mailbox", t)     # ended when the worker takes it
         self.mailbox.put((t, points))
+
+    def trace_counters(self) -> dict:
+        """The counts trace.export() reports: the mailbox's own."""
+        return {"runtime.submitted": self.frames_submitted,
+                "runtime.dropped": self.dropped_frames}
 
     # ---------------------------------------------------------------- core
 
     def _pad_raw_host(self, points: np.ndarray) -> np.ndarray:
         """(max_raw_points, 3) in the compute type, NaN rows past the cloud."""
-        n_raw = self.cfg.shapes.max_raw_points
-        pts = np.asarray(points, dtype=self._npdt).reshape(-1, 3)
-        out = np.full((n_raw, 3), np.nan, dtype=self._npdt)
-        k = min(len(pts), n_raw)
-        out[:k] = pts[:k]
-        return out
+        with trace.span("engine.pad"):
+            n_raw = self.cfg.shapes.max_raw_points
+            pts = np.asarray(points, dtype=self._npdt).reshape(-1, 3)
+            out = np.full((n_raw, 3), np.nan, dtype=self._npdt)
+            k = min(len(pts), n_raw)
+            out[:k] = pts[:k]
+            return out
 
     def _pad_raw(self, points: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(self._pad_raw_host(points)).to(self.device)
@@ -428,32 +436,38 @@ class SegmentationEngine:
             return None
         position, quat = pose
 
-        start = time.perf_counter()
+        start = time.perf_counter_ns()
+        end = 0
+        span = trace.begin("engine.frame", t, start)     # processing_time's reads
         frame_points = None
-        with self._state_lock, self._on_device():
-            if self.backend == "oracle":
-                # the oracle's world map grows without a capacity: no D-CAP
-                overflow = 0
-                wc, nl, st, frame_points = self._process_oracle(points, position, quat)
-            else:
-                out, scalars = self._dispatch(points, position, quat)
-                # one device->host read per frame, which also waits for the frame
-                wc, nl, st, overflow = scalars.tolist()
-                if self.collect_inlier_points:
-                    self._collect_points(out, position, quat)
-                if self._viz_stream is not None and self._viz_points:
-                    frame_points = self._frame_points_of(out, position, quat)
-            end = time.perf_counter()
-            record = {
-                "wall_time": (end - self._program_start) * 1e6,
-                "processing_time": (end - start) * 1e6,
-                "seg_vec_size": wc,
-                "nblines": nl,
-            }
-            self.records.append(record)
-            self.frames_processed += 1
-            if overflow:
-                self.world_overflow_frames += 1
+        try:
+            with self._state_lock, self._on_device():
+                if self.backend == "oracle":
+                    # the oracle's world map grows without a capacity: no D-CAP
+                    overflow = 0
+                    wc, nl, st, frame_points = self._process_oracle(points, position, quat)
+                else:
+                    out, scalars = self._dispatch(points, position, quat)
+                    # one device->host read per frame, which also waits for the frame
+                    with trace.span("engine.read"):
+                        wc, nl, st, overflow = scalars.tolist()
+                    if self.collect_inlier_points:
+                        self._collect_points(out, position, quat)
+                    if self._viz_stream is not None and self._viz_points:
+                        frame_points = self._frame_points_of(out, position, quat)
+                end = time.perf_counter_ns()
+                record = {
+                    "wall_time": (end / 1e9 - self._program_start) * 1e6,
+                    "processing_time": (end - start) / 1e3,
+                    "seg_vec_size": wc,
+                    "nblines": nl,
+                }
+                self.records.append(record)
+                self.frames_processed += 1
+                if overflow:
+                    self.world_overflow_frames += 1
+        finally:
+            trace.end(span, end or None)
         if overflow:
             logger.warning(
                 "world map full (max_world_segments=%d): dropped %d "
@@ -477,7 +491,8 @@ class SegmentationEngine:
 
         info = {"world_count": wc, "nlines": nl, "status": st}
         if self._viz_stream is not None:
-            self._emit_viz_frame(t, info, position, quat, frame_points)
+            with trace.span("engine.viz", t):
+                self._emit_viz_frame(t, info, position, quat, frame_points)
         return dict(record, status=st, t=t)
 
     def _maybe_checkpoint(self) -> None:
@@ -822,28 +837,33 @@ class SegmentationEngine:
             self.frames_skipped_no_pose += 1
             return False
         position, quat = pose
-        start = time.perf_counter()
-        with self._state_lock:
-            _, scalars = self._dispatch(points, position, quat)
-            event = None
-            if scalars.is_cuda:
-                # a fresh pinned row per frame: none is written again, so no
-                # copy can land in a row the flusher has yet to read
-                parked = torch.empty(4, dtype=torch.int32, pin_memory=True)
-                parked.copy_(scalars, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record()
-            else:
-                parked = scalars
-            end = time.perf_counter()
-            rec = {"wall_time": (end - self._program_start) * 1e6,
-                   "processing_time": (end - start) * 1e6,
-                   "seg_vec_size": -1, "nblines": -1}
-            self.records.append(rec)
-            self.frames_processed += 1
-            frame_no = self.frames_processed
+        start = time.perf_counter_ns()
+        end = 0
+        span = trace.begin("engine.frame", t, start)     # processing_time's reads
+        try:
+            with self._state_lock:
+                _, scalars = self._dispatch(points, position, quat)
+                event = None
+                if scalars.is_cuda:
+                    # a fresh pinned row per frame: none is written again, so no
+                    # copy can land in a row the flusher has yet to read
+                    parked = torch.empty(4, dtype=torch.int32, pin_memory=True)
+                    parked.copy_(scalars, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record()
+                else:
+                    parked = scalars
+                end = time.perf_counter_ns()
+                rec = {"wall_time": (end / 1e9 - self._program_start) * 1e6,
+                       "processing_time": (end - start) / 1e3,
+                       "seg_vec_size": -1, "nblines": -1}
+                self.records.append(rec)
+                self.frames_processed += 1
+                frame_no = self.frames_processed
+        finally:
+            trace.end(span, end or None)
         if not self._pending:
-            self._pending_t0 = end      # the oldest pending record's age
+            self._pending_t0 = end / 1e9      # the oldest pending record's age
         meta = (frame_no, t, position, quat) if self._viz_flush else None
         self._pending.append((rec, parked, event, meta))
         return True
@@ -863,7 +883,7 @@ class SegmentationEngine:
         records.  The wait's time is added to the batch's last
         `processing_time`, as the pipelined replay adds its one read.  D-CAP
         counts are exact.  Returns the (k, 4) rows."""
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         self._read_started_mono = time.monotonic()
         try:
             if batch[-1][2] is not None:
@@ -871,7 +891,9 @@ class SegmentationEngine:
             vals = torch.stack([parked for _, parked, _, _ in batch]).tolist()
         finally:
             self._read_started_mono = None
-        sync_us = (time.perf_counter() - t0) * 1e6
+        t1 = time.perf_counter_ns()
+        trace.add("runtime.flush_read", t0, t1)
+        sync_us = (t1 - t0) / 1e3
         self._stall_read_ms = max(self._stall_read_ms, sync_us / 1e3)
         with self._state_lock:
             for (rec, _, _, _), (wc, nl, _, _) in zip(batch, vals):
@@ -896,7 +918,8 @@ class SegmentationEngine:
                 try:
                     vals = self._backfill_batch(batch)
                     if self._viz_flush:
-                        self._emit_viz_flush(batch, vals)
+                        with trace.span("engine.viz"):
+                            self._emit_viz_flush(batch, vals)
                 except Exception:
                     logger.exception("flush backfill failed; records keep "
                                      "their -1 sentinels for this batch")
@@ -958,7 +981,9 @@ class SegmentationEngine:
                         self._flush_and_bound("idle flush")
                     continue
                 t, points = item
-                t0 = time.perf_counter()
+                t0 = time.perf_counter_ns()
+                trace.marked("runtime.mailbox", t, t0)
+                step = trace.begin("runtime.step", t, t0)
                 try:
                     if deferred:
                         self._process_frame_deferred(t, points)
@@ -967,8 +992,9 @@ class SegmentationEngine:
                 except Exception:
                     self.frames_failed += 1
                     logger.exception("frame at t=%s failed; worker continues", t)
-                self._stall_step_ms = max(self._stall_step_ms,
-                                          (time.perf_counter() - t0) * 1e3)
+                t1 = time.perf_counter_ns()
+                trace.end(step, t1)
+                self._stall_step_ms = max(self._stall_step_ms, (t1 - t0) / 1e6)
                 if deferred and len(self._pending) >= self.stream_sync_every:
                     self._flush_and_bound("flush")
                 with self._progress:

@@ -460,7 +460,8 @@ def test_cli_inspect_prints_the_jax_commands_shape_facts(capfd):
     assert info["frame"] == 10 and info["nlines"] >= 1 and info["wall_ms"] > 0
     assert info["loop"] == "eager"           # the CPU's default loop
     for k in ("graph_launches", "kernel_launches", "host_reads", "device_us",
-              "vote_state_launches", "vote_histogram_launches", "flops", "bytes_accessed"):
+              "vote_state_launches", "vote_histogram_launches", "flops", "bytes_accessed",
+              "device_stage_ms", "host_stage_ms", "live_rounds"):
         assert k not in info
     assert "flops" in jinfo
 
