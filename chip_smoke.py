@@ -132,6 +132,13 @@ CSV_HEADERS = {"segments.csv": "segment,a_x,a_y,a_z,b_x,b_y,b_z,t_min,t_max",
 # products, three sums, the quotient (a product and four FMAs), a floor, a
 # conversion and a two-sided clamp; then the cell index and one atomic vote
 VOTE_INSTRUCTIONS = 2 * (3 + 3 + 5 + 1 + 1 + 2) + 2
+# float32 operations of binning one (removed point, direction) pair on both
+# axes, the benchmark's count (benchmark/roofline/voting.py): the decrement's
+# least work, since a pair whose x bin rules the key out skips its y bin
+DECREMENT_OPS_PER_PAIR = 24
+# nodes of the captured g6 frame while the decrement was a chain of PyTorch
+# ops over a (20,608, 512) tensor (an H100, tracing off)
+CHAIN_GRAPH_NODES_G6 = 7_268
 
 
 def fail(msg: str) -> None:
@@ -220,6 +227,26 @@ def launcher(lib, name, Xs, act, c1, c2, half, dx, nx, NX):
     return run
 
 
+def decrement_launcher(lib, Xs, removed, c1, c2, half, dx, nx, NX, key, best):
+    """One launch of the decrement kernel from `lib`, its output and
+    scalars made once (see `launcher`)."""
+    from pointcloud_segmentation_tpu_torch.ops import voting as V
+
+    B, N = c1.shape[0], Xs.shape[0]
+    half_dx, nxt, _ = V._launch_args(Xs, half, dx, nx)
+    out = torch.empty_like(best)
+    args = [Xs.data_ptr(), removed.data_ptr(), N, c1.data_ptr(), c2.data_ptr(), B,
+            half_dx.data_ptr(), nxt.data_ptr(), NX, key.data_ptr(), best.data_ptr(),
+            out.data_ptr()]
+
+    def run(keep=(half_dx, nxt, out)):     # keep: the tensors behind args
+        err = lib.pcs_vote_decrement(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"vote_decrement launch failed: CUDA error {err}")
+
+    return run
+
+
 def frames_of(scene, poses, spec, seed):
     from pointcloud_segmentation_tpu_torch.io.simulator import simulate_trajectory
 
@@ -262,7 +289,7 @@ class Shapes:
         self.card = card
         self.lib = load_library()
         self.earlier = earlier   # an earlier library, timed beside this one
-        self.errs = {"vote_state": 0, "vote_histogram": 0}
+        self.errs = {"vote_state": 0, "vote_histogram": 0, "vote_decrement": 0}
         self.times = []
 
     def state(self, label, p, c1, c2, active=None, timed=False):
@@ -295,6 +322,39 @@ class Shapes:
         if timed:
             self.time("vote_histogram", label, Xs, act, c1, c2, half, dx, nx, NX,
                       compare=True)
+
+    def decrement(self, label, p, c1, c2, state, removed, timed=False):
+        """The decrement kernel against its plain version, with `state`
+        (best, key, _) of the table; with `timed`, its kernel ms (CUDA-graph
+        replays of the launch alone), plain ms and operations bound."""
+        from pointcloud_segmentation_tpu_torch.ops import voting as V
+
+        Xs, _, half, dx, nx, NX = p
+        best, key = state[0], state[1]
+        k = V.vote_decrement(Xs, removed, c1, c2, half, dx, nx, NX, key, best)
+        q = V.vote_decrement_plain(Xs, removed, c1, c2, half, dx, nx, NX, key, best)
+        e = max_err(k, q)
+        n_rem = int(removed.sum())
+        self.errs["vote_decrement"] = max(self.errs["vote_decrement"], e)
+        check(e == 0, f"vote_decrement == plain, {label} ({c1.shape[0]} rows, {n_rem} "
+                      f"removed of {Xs.shape[0]}, NX {NX}; {int((k < best).sum())} best "
+                      f"cells lose votes): max err {e}")
+        if not timed:
+            return
+        ms = graph_ms(decrement_launcher(self.lib, Xs, removed, c1, c2, half, dx, nx, NX,
+                                         key, best))
+        plain_ms = event_ms(lambda: V.vote_decrement_plain(Xs, removed, c1, c2, half, dx,
+                                                           nx, NX, key, best), 3)
+        b_ms = DECREMENT_OPS_PER_PAIR * n_rem * c1.shape[0] / PEAK_LANE_INSTRUCTIONS * 1e3
+        rec = {"name": "vote_decrement", "shape": label, "rows": c1.shape[0],
+               "n": Xs.shape[0], "active": n_rem, "nx": NX, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": None, "bound_ms": b_ms, "bound_by": "operations",
+               "earlier_ms": None}
+        self.times.append(rec)
+        print(f"time  vote_decrement, {label} ({c1.shape[0]} rows, N {Xs.shape[0]}, "
+              f"{n_rem} removed, NX {NX}): kernel {ms:.4f} ms, bound {b_ms:.5f} ms "
+              f"(operations, {b_ms / ms:.1%} of it), plain {plain_ms:.4f} ms, library none "
+              f"[{self.card}]", flush=True)
 
     def time(self, name, label, Xs, act, c1, c2, half, dx, nx, NX, compare=False):
         """Kernel ms (CUDA-graph replays of the kernel's launch alone), plain
@@ -367,7 +427,11 @@ def kernel_checks(dev, frame, card, earlier=None):
                           f"{2 * xk.numel()} bins, {n_bad} differ")
         del xk, yk, xp, yp
 
-        sh.state("the full g6 table", p6, c16, c26, timed=timed)
+        full = sh.state("the full g6 table", p6, c16, c26, timed=timed)
+        # the lazy decrement at the removed counts of the main path's rounds
+        for n_rem in (37, 300, 512):
+            rem = act & (torch.cumsum(act.to(torch.int32), 0) <= n_rem)
+            sh.decrement(f"{n_rem} removed points", p6, c16, c26, full, rem, timed=timed)
         for rows in (2048, 256):
             sh.state(f"{rows} gathered rows", p6, *gathered(c16, c26, rows, g), timed=timed)
         removed = act & (torch.rand(act.shape, generator=g).to(dev) < 0.3)
@@ -397,6 +461,9 @@ def kernel_checks(dev, frame, card, earlier=None):
           "an all-false mask gives (0, 0, 0) in every direction")
     sh.histogram("an all-false mask", p6, c14, c24, active=none)
     everyone = torch.ones_like(act)
+    full = V.vote_state(Xs, act, c16, c26, half, dx, nx, NX)
+    sh.decrement("no point removed", p6, c16, c26, full, none)
+    sh.decrement("every point removed (staged in chunks)", p6, c16, c26, full, act)
     sh.state("N = 4096 all active", p6, c16, c26, active=everyone)
     sh.histogram("N = 4096 all active", p6, c14, c24, active=everyone)
     t = torch.linspace(-1.0, 1.0, Xs.shape[0], device=dev)[:, None]
@@ -508,23 +575,26 @@ class Counted:
 def replay(cfg, frames, dev, voting, per_frame=False, loop=None):
     """One engine (`loop`, or its default loop for `voting`) over the frames:
     records, world segments and state at the end, the engine, and with
-    `per_frame` the world state after each frame."""
+    `per_frame` the world state after each frame and the decrement's
+    launches issued so far after each frame."""
     from pointcloud_segmentation_tpu_torch import SegmentationEngine
     from pointcloud_segmentation_tpu_torch.convert import world_state_to_numpy
+    from pointcloud_segmentation_tpu_torch.ops import voting as V
 
     eng = SegmentationEngine(cfg, dev, voting=voting, loop=loop)
     if per_frame:
-        recs, states = [], []
+        recs, states, decrements = [], [], []
         for fr in frames:
             recs += eng.run_replay([fr])
             states.append(world_state_to_numpy(eng.state))
+            decrements.append(V.vote_decrement.launches)
     else:
         recs = eng.run_replay(frames)
     torch.cuda.synchronize()
     out = {"records": recs, "segments": eng.world_segments(),
            "state": world_state_to_numpy(eng.state), "engine": eng}
     if per_frame:
-        out["states"] = states
+        out["states"], out["decrements"] = states, decrements
     return out
 
 
@@ -566,6 +636,7 @@ def counted_voting():
 
     V.vote_state.launches = 0
     V.vote_histogram.launches = 0
+    V.vote_decrement.launches = 0
     return Voting(Counted(V.vote_state), Counted(V.vote_histogram))
 
 
@@ -589,10 +660,13 @@ def counted_run(label, cfg, frames, dev, name, per_frame=False):
     """One path of the main path on the eager engine, its kernel's launch
     count set to 0 just before and read just after; returns (run,
     launches).  The run keeps its calls by (rows, points) under "shapes"."""
+    from pointcloud_segmentation_tpu_torch.ops import voting as V
+
     voting = counted_voting()
     run = replay(cfg, frames, dev, voting, per_frame)
     n = launches_of(label, voting, name)
     run["shapes"] = dict(getattr(voting, name).shapes)
+    run["decrement_launches"] = V.vote_decrement.launches    # one an increment round
     return run, n
 
 
@@ -1028,6 +1102,14 @@ def main_path(cfg6, cfg4, frames, dev, k6, k4, card):
         check(0 < ran < captured,
               f"{label} replay through the cond step: {name} ran (and voted) in {ran} of "
               f"the {captured} launches its graphs hold")
+        if name == "vote_state":
+            # the capture's warm-up runs frame 0 on the card once more
+            dec_captured, dec_ran = launches["vote_decrement"] = loop_counts(V.vote_decrement)
+            n_inc, first = eager["decrement_launches"], eager["decrements"][0]
+            check(0 < dec_ran == n_inc + first < dec_captured,
+                  f"{label} replay through the cond step: vote_decrement ran in {dec_ran} of "
+                  f"the {dec_captured} launches its graphs hold: the eager replay's {n_inc} "
+                  f"increment rounds and frame 0's {first} again in the capture's warm-up")
         bad = [k for k, (r, e, a, b) in enumerate(zip(run["records"], eager["records"],
                                                        run["states"], eager["states"]))
                if (r["seg_vec_size"], r["nblines"]) != (e["seg_vec_size"], e["nblines"])
@@ -1043,6 +1125,10 @@ def main_path(cfg6, cfg4, frames, dev, k6, k4, card):
               f"conditional nodes [{card}]", flush=True)
         check(cap["cond_nodes"] > round_count(cfg),
               f"{label}: the cond graph holds a node a round and more for the branches")
+        chain = (f" ({CHAIN_GRAPH_NODES_G6:,} with the decrement as a chain of ops)"
+                 if name == "vote_state" else "")
+        print(f"      cond {label}: the captured frame holds {cap['graph_nodes']:,} graph "
+              f"nodes, its bodies' included{chain}", flush=True)
         runs[label]["cond"] = run
     return runs, launches
 
@@ -2923,18 +3009,23 @@ def whole_run(cfg6, cfg4, frames, dev, card, earlier, oracle6):
         shard_stack(cfg6, cfg4, frames, k6, dev, card, tmp, sh, log)
 
     sources = {"vote_state": "tools/exp_g6_pallas.py:156",
-               "vote_histogram": "pointcloud_segmentation_tpu/ops/voting_pallas.py:49"}
-    main_shape = {"vote_state": "the full g6 table", "vote_histogram": "g4"}
+               "vote_histogram": "pointcloud_segmentation_tpu/ops/voting_pallas.py:49",
+               "vote_decrement": "none (the XLA chain of pointcloud_segmentation_tpu/ops/"
+                                 "hough.py _removed_cell_keys, compare and sum)"}
+    main_shape = {"vote_state": "the full g6 table", "vote_histogram": "g4",
+                  "vote_decrement": "512 removed points"}
     # each timed shape's launches: on its replay of the main path, or (set by
     # shard_phase) on rank 0 of its sharded replay
     paths = {("vote_state", 79): k6["shapes"], ("vote_state", 261): k6s["shapes"],
              ("vote_histogram", 79): k4["shapes"]}
     kernels = []
-    for name in ("vote_state", "vote_histogram"):
+    for name in ("vote_state", "vote_histogram", "vote_decrement"):
         shapes = [r for r in sh.times if r["name"] == name]
         for r in shapes:
             key = (r["rows"], r["n"] if r["n"] > 512 else "<= 512")
-            r.setdefault("launches", paths.get((name, r["nx"]), {}).get(key, 0))
+            # the decrement's launches are counted a replay, not by shape
+            r.setdefault("launches", None if name == "vote_decrement" else
+                         paths.get((name, r["nx"]), {}).get(key, 0))
         head = next(r for r in shapes if r["shape"] == main_shape[name] and r["nx"] == 79)
         kernels.append({
             "name": name, "route": "cuda",

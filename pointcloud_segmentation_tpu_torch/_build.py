@@ -49,6 +49,8 @@ _SIGNATURES = {
     "pcs_vote_histogram": (_P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P),
     # xs, n, c1, c2, nb, half_dx, num_x, xi, yi, stream
     "pcs_vote_bins": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _P),
+    # xs, removed, n, c1, c2, nb, half_dx, num_x, nxs, key, best, best_d, stream
+    "pcs_vote_decrement": (_P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P),
     # stream, flag (one byte on the card), body stream
     "pcs_if_begin": (_P, _P, _P),
     # body stream
@@ -127,6 +129,8 @@ def _build_and_load(source: Path) -> ctypes.CDLL:
     BuildInfo.path = path
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
+        if source != _SOURCE and not hasattr(lib, name):
+            continue                 # an earlier voting.cu, without a later entry
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int

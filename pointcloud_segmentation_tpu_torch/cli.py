@@ -416,7 +416,7 @@ def cmd_inspect(args) -> int:
         info[f"{clock}_stage_ms"] = {name: (e - s) / 1e6 for name, s, e in trace.stages(ns)}
         info["live_rounds"] = f["live_rounds"]
     if on_card:
-        for fn in (V.vote_state, V.vote_histogram):
+        for fn in V.COUNTED:
             info[f"{fn.__name__}_launches"] = fn.launches
             info[f"{fn.__name__}_launches_ran"] = V.ran_launches(fn)
     print(json.dumps({k: v for k, v in info.items() if v is not None}, indent=2))

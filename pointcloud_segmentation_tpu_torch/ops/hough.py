@@ -3,10 +3,11 @@
 Twin of the JAX package's ops/hough.py, mode for mode: "carry" keeps the
 exact (B, NX, NX) accumulator and subtracts each extracted line's inliers;
 "lazy" keeps only (best, key, ub) per direction, decrements each best cell by
-the removed points' votes and re-examines the directions whose bound could
-reach the global max.  The voting itself goes through ops/voting.py: the
-CUDA kernels for CUDA tensors, the plain versions for CPU tensors (or for
-CUDA tensors, when a caller passes ``voting=PLAIN`` to compare the two).
+the removed points' votes (one kernel, `vote_decrement`) and re-examines the
+directions whose bound could reach the global max.  The voting itself goes
+through ops/voting.py: the CUDA kernels for CUDA tensors, the plain versions
+for CPU tensors (or for CUDA tensors, when a caller passes ``voting=PLAIN``
+to compare the two).
 
 The loop is the JAX package's: one function, `_round`, is the body of the
 JAX ``lax.while_loop``, masked by a device flag ``live`` (the loop's
@@ -21,14 +22,16 @@ the rounds, chosen by the caller:
     device deciding at replay; elsewhere, the CPU included, it reads its
     flag on the host, which is the node's meaning, so the CPU tests run the
     bodies the card captures.  The loop state lives in tensors made before
-    the first node, and each body writes its results into them; the
-    removed points are compacted to a fixed `_SUB_CHUNK` columns with a
-    live-column mask, since a shape is fixed at capture.
+    the first node, and each body writes its results into them; the carry
+    subtract compacts the removed points to a fixed `_SUB_CHUNK` columns
+    with a live-column mask, since a shape is fixed at capture (the lazy
+    decrement reads the removed mask itself).
   * ``loop="eager"``: the same rounds until one ends the loop.  A round
     reads its branch and removed count on the host (and, in a lazy
-    incremental round, its suspect count) and issues only that branch, its
-    compaction sized to the removed points: the dead columns of the cond
-    loop's compaction count nothing, so the two loops give the same bits.
+    incremental round, its suspect count) and issues only that branch, the
+    carry compaction sized to the removed points: the dead columns of the
+    cond loop's compaction count nothing, so the two loops give the same
+    bits.
     The plain voting functions (whose bincount reads the host) and a shard
     (whose collectives are not captured) take this one; asking for "cond"
     with either raises.
@@ -66,17 +69,20 @@ from ..geometry import canonicalize_direction
 from ..sphere import hough_space
 from .eigh3 import eigvalsh3, principal_eigenvector3
 from . import voting as V
+from .voting import _compact_removed
 
 
 class Voting(NamedTuple):
-    """The two voting functions extract_lines calls (see ops/voting.py)."""
+    """The voting functions extract_lines calls (see ops/voting.py).  A
+    caller that names only the first two gets the decrement kernel."""
 
     vote_state: object
     vote_histogram: object
+    vote_decrement: object = V.vote_decrement
 
 
-KERNELS = Voting(V.vote_state, V.vote_histogram)
-PLAIN = Voting(V.vote_state_plain, V.vote_histogram_plain)
+KERNELS = Voting(V.vote_state, V.vote_histogram, V.vote_decrement)
+PLAIN = Voting(V.vote_state_plain, V.vote_histogram_plain, V.vote_decrement_plain)
 
 _VOTE_TILE = 128       # direction tables are padded to a multiple of this
 _SUB_CHUNK = 512       # removed-point columns of the incremental update
@@ -237,39 +243,6 @@ def _pad_dirs_to_tile(dirs, c1, c2):
     if pad == 0:
         return dirs, c1, c2
     return tuple(torch.cat([t, t[:1].expand(pad, 3)]) for t in (dirs, c1, c2))
-
-
-def _compact_removed(Xs, removed, n_rem, sub_chunk: int):
-    """Gather the removed points into `sub_chunk` rows, in index order, with
-    the JAX package's fixed width: returns (Xr (sub_chunk, 3), col_live
-    (sub_chunk,) bool), col_live = arange(sub_chunk) < n_rem, where n_rem is
-    the removed count (a 0-dim device tensor, or an int).  A dead column
-    holds point 0.  The one compaction that the carry subtract and the lazy
-    decrement share, so both bin the removed points identically.
-
-    A removed point past sub_chunk (n_rem > sub_chunk: the round takes the
-    rebuild and discards this) is placed in the sentinel column sub_chunk,
-    which is cut off: JAX drops an out-of-range scatter index, where
-    `index_copy_` on a card would fault."""
-    N = removed.shape[0]
-    dev = Xs.device
-    pos = torch.cumsum(removed.to(torch.int32), 0, dtype=torch.int32) - 1
-    pos = torch.where(removed, torch.clamp_max(pos, sub_chunk), sub_chunk)
-    perm = torch.zeros(sub_chunk + 1, dtype=torch.int64, device=dev)
-    perm.index_copy_(0, pos.to(torch.int64), torch.arange(N, dtype=torch.int64, device=dev))
-    col_live = torch.arange(sub_chunk, device=dev) < n_rem
-    return Xs[perm[:sub_chunk]], col_live
-
-
-def _removed_cell_keys(Xs, c1, c2, half, dx, num_x, removed, n_rem, sub_chunk: int,
-                       num_x_static):
-    """(B, sub_chunk) flat cell keys x*NX + y of the removed points, binned by
-    ops/voting.vote_bins, the expression the kernels use; a dead column holds
-    the sentinel NX*NX, which matches no direction's key."""
-    Xr, col_live = _compact_removed(Xs, removed, n_rem, sub_chunk)
-    xt, yt = V.vote_bins(Xr, c1, c2, half, dx, num_x)
-    keys = xt * num_x_static + yt
-    return torch.where(col_live[None, :], keys, num_x_static * num_x_static)
 
 
 def scatter_rows(dst, idx, rows):
@@ -487,7 +460,8 @@ def round_count(cfg: PipelineConfig) -> int:
 
 def _is_plain(voting: Voting) -> bool:
     return (voting.vote_state is V.vote_state_plain
-            or voting.vote_histogram is V.vote_histogram_plain)
+            or voting.vote_histogram is V.vote_histogram_plain
+            or voting.vote_decrement is V.vote_decrement_plain)
 
 
 def extract_lines(points: torch.Tensor, valid: torch.Tensor,
@@ -608,15 +582,14 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
         return (scatter_rows(best, idx, bs), scatter_rows(key, idx, ks),
                 scatter_rows(ub, idx, us))
 
-    def decrement(vs, m2, n_rem, width):
+    def decrement(vs, m2):
         """The lazy incremental update's first step, in every loop: each
-        direction's best count less the votes the n_rem removed points of m2
-        (compacted to `width` columns) cast in its best cell, and the
+        direction's best count less the votes the removed points of m2 cast
+        in its best cell (one kernel, reading the mask itself), and the
         directions whose bound could still reach the new maximum.  Returns
         (the decremented state, suspect (B,) bool)."""
         best, key, ub = vs
-        keys_r = _removed_cell_keys(Xv, c1, c2, half32, dx32, num_x, m2, n_rem, width, NX)
-        best_d = best - (keys_r == key[:, None]).sum(dim=1, dtype=torch.int32)
+        best_d = voting.vote_decrement(Xv, m2, c1, c2, half32, dx32, num_x, NX, key, best)
         M_lb = best_d.max()
         if shard is not None:
             M_lb = shard.max(M_lb)
@@ -633,12 +606,12 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
         the new state into `vs` in place: branch 0 keeps the state (the loop
         is ending), 1 removes the n_rem points of m2 incrementally, 2
         rebuilds it from active_next (more than sub_chunk points removed).
-        Only the branch taken issues its ops, kernels and compaction
-        included."""
+        Only the branch taken issues its ops, kernels and the carry
+        compaction included."""
         inc, rebuild = branch == 1, branch == 2
         if lazy:
             def increment():
-                dec, suspect = decrement(vs, m2, n_rem, sub_chunk)
+                dec, suspect = decrement(vs, m2)
                 n_sus = suspect.sum()
                 # the tier (JAX `lax.switch(sel, [s_tier, s_cap, rebuild])`),
                 # every flag made before the first of its nodes
@@ -668,13 +641,13 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
 
     def vstate_update_eager(vs, branch: int, m2, n_rem: int, active_next):
         """`vstate_update`'s branch 1 or 2 alone, for the eager loop, which
-        has read the branch and n_rem on the host: the removed points
-        compacted to n_rem columns, the lazy tier picked by a host read of
-        the suspect count."""
+        has read the branch and n_rem on the host: the carry subtract's
+        removed points compacted to n_rem columns, the lazy tier picked by a
+        host read of the suspect count."""
         if branch == 2:
             return vstate_init(active_next)
         if lazy:
-            dec, suspect = decrement(vs, m2, n_rem, n_rem)
+            dec, suspect = decrement(vs, m2)
             n_sus = int(suspect.sum())           # host read: picks the tier
             for cap in (s_tier, s_cap):
                 if n_sus <= cap:

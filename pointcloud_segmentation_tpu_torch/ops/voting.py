@@ -1,11 +1,13 @@
-"""The voting layer: vote bins, the lazy voting state and the vote histogram.
+"""The voting layer: vote bins, the lazy voting state and its decrement, and
+the vote histogram.
 
 Each wrapper holds its CUDA launch (``csrc/voting.cu``) and its plain PyTorch
 version.  A tensor on the CPU takes the plain version; a CUDA tensor launches
 the kernel or raises.  There is no fallback from one to the other.  Each
 wrapper counts its kernel launches in a plain integer attribute
-(``vote_state.launches``, ``vote_histogram.launches``), so a run can show that
-it went through the kernels.
+(``vote_state.launches``, ``vote_histogram.launches``,
+``vote_decrement.launches``), so a run can show that it went through the
+kernels.
 
 A wrapper's counts, two figures apart:
   * ``launches``: launches issued, those recorded into a CUDA graph counted
@@ -23,7 +25,8 @@ exist before a graph is captured on it (`prepare_counts`).
 Shapes and types at every public function:
   Xs (N, 3) float32 shifted coordinates; active (N,) bool;
   c1, c2 (B, 3) float32 plane bases; half, dx 0-dim float32 tensors;
-  num_x 0-dim int32 tensor; num_x_static a Python int (NX).
+  num_x 0-dim int32 tensor; num_x_static a Python int (NX); the decrement's
+  removed (N,) bool and key, best (B,) int32.
 
 The bins are float32 by spec in both compute types.  In the float64 parity
 mode the caller (ops/hough.py) hands every function here one contiguous
@@ -63,6 +66,40 @@ def vote_bins(Xs, c1, c2, half, dx, num_x):
     xi = torch.minimum(torch.floor((xp + half) / dx).to(torch.int32).clamp_min(0), hi)
     yi = torch.minimum(torch.floor((yp + half) / dx).to(torch.int32).clamp_min(0), hi)
     return xi, yi
+
+
+def _compact_removed(Xs, removed, n_rem, sub_chunk: int):
+    """Gather the removed points into `sub_chunk` rows, in index order, with
+    the JAX package's fixed width: returns (Xr (sub_chunk, 3), col_live
+    (sub_chunk,) bool), col_live = arange(sub_chunk) < n_rem, where n_rem is
+    the removed count (a 0-dim device tensor, or an int).  A dead column
+    holds point 0.  The one compaction that the carry subtract and the lazy
+    decrement's plain version share, so both bin the removed points
+    identically.
+
+    A removed point past sub_chunk (n_rem > sub_chunk: the round takes the
+    rebuild and discards this) is placed in the sentinel column sub_chunk,
+    which is cut off: JAX drops an out-of-range scatter index, where
+    `index_copy_` on a card would fault."""
+    N = removed.shape[0]
+    dev = Xs.device
+    pos = torch.cumsum(removed.to(torch.int32), 0, dtype=torch.int32) - 1
+    pos = torch.where(removed, torch.clamp_max(pos, sub_chunk), sub_chunk)
+    perm = torch.zeros(sub_chunk + 1, dtype=torch.int64, device=dev)
+    perm.index_copy_(0, pos.to(torch.int64), torch.arange(N, dtype=torch.int64, device=dev))
+    col_live = torch.arange(sub_chunk, device=dev) < n_rem
+    return Xs[perm[:sub_chunk]], col_live
+
+
+def _removed_cell_keys(Xs, c1, c2, half, dx, num_x, removed, n_rem, sub_chunk: int,
+                       num_x_static):
+    """(B, sub_chunk) flat cell keys x*NX + y of the removed points, binned by
+    `vote_bins`, the expression the kernels use; a dead column holds the
+    sentinel NX*NX, which matches no direction's key."""
+    Xr, col_live = _compact_removed(Xs, removed, n_rem, sub_chunk)
+    xt, yt = vote_bins(Xr, c1, c2, half, dx, num_x)
+    keys = xt * num_x_static + yt
+    return torch.where(col_live[None, :], keys, num_x_static * num_x_static)
 
 
 def _tile_counts(Xa, c1t, c2t, half, dx, num_x, nxs):
@@ -167,11 +204,11 @@ def pinned(device) -> torch.device:
 
 
 def prepare_counts(device) -> None:
-    """Both wrappers' device counters on `device`, made now if missing: a
-    counter made inside a capture would be the graph's, refilled with 0 at
-    every replay."""
+    """Every counted wrapper's device counter on `device`, made now if
+    missing: a counter made inside a capture would be the graph's, refilled
+    with 0 at every replay."""
     device = pinned(device)
-    for fn in (vote_state, vote_histogram):
+    for fn in COUNTED:
         if device not in fn.counts:
             fn.counts[device] = torch.zeros((), dtype=torch.int64, device=device)
 
@@ -206,9 +243,9 @@ def ran_launches(fn) -> int:
 
 
 def reset_counts() -> None:
-    """Both wrappers' launch counts to 0, the device counters in place, so
-    a captured graph goes on adding to them."""
-    for fn in (vote_state, vote_histogram):
+    """Every counted wrapper's launch counts to 0, the device counters in
+    place, so a captured graph goes on adding to them."""
+    for fn in COUNTED:
         fn.launches = 0
         for t in fn.counts.values():
             t.zero_()
@@ -269,6 +306,48 @@ def vote_histogram(Xs, active, c1, c2, half, dx, num_x, num_x_static):
 
 vote_histogram.launches = vote_histogram.captured = 0
 vote_histogram.counts = {}
+
+
+def vote_decrement_plain(Xs, removed, c1, c2, half, dx, num_x, num_x_static, key, best):
+    n_rem = int(removed.sum())           # host read: the width
+    keys_r = _removed_cell_keys(Xs, c1, c2, half, dx, num_x, removed, n_rem, n_rem,
+                                num_x_static)
+    return best - (keys_r == key[:, None]).sum(dim=1, dtype=torch.int32)
+
+
+def vote_decrement(Xs, removed, c1, c2, half, dx, num_x, num_x_static, key, best):
+    """(B,) int32: each direction's best count less the votes the removed
+    points cast in its best cell, the flat cell `key` (x*NX + y), as the
+    lazy increment of ops/hough.py and of the JAX package computes it."""
+    if not Xs.is_cuda:
+        return vote_decrement_plain(Xs, removed, c1, c2, half, dx, num_x, num_x_static,
+                                    key, best)
+    from .._build import load_library
+
+    _check_cuda_args(Xs, removed, c1, c2, half, dx, num_x, None)
+    B, N = c1.shape[0], Xs.shape[0]
+    for name, t in (("key", key), ("best", best)):
+        if (t.device != Xs.device or t.dtype != torch.int32 or t.shape != (B,)
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous ({B},) int32 tensor on {Xs.device}")
+    if not 1 <= num_x_static <= MAX_NX:
+        raise ValueError(f"num_x_static={num_x_static} must lie in [1, {MAX_NX}]")
+    best_d = torch.empty_like(best)
+    half_dx, nx, stream = _launch_args(Xs, half, dx, num_x)
+    err = load_library().pcs_vote_decrement(
+        Xs.data_ptr(), removed.data_ptr(), N, c1.data_ptr(), c2.data_ptr(), B,
+        half_dx.data_ptr(), nx.data_ptr(), num_x_static, key.data_ptr(), best.data_ptr(),
+        best_d.data_ptr(), stream)
+    _raise_on(err, "vote_decrement")
+    _count(vote_decrement, Xs.device)
+    return best_d
+
+
+vote_decrement.launches = vote_decrement.captured = 0
+vote_decrement.counts = {}
+
+# the wrappers whose launches are counted
+COUNTED = (vote_state, vote_histogram, vote_decrement)
 
 
 def vote_bins_kernel(Xs, c1, c2, half, dx, num_x):

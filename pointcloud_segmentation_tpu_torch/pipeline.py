@@ -334,7 +334,7 @@ class FrameStep:
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
-        fns = (V.vote_state, V.vote_histogram)
+        fns = V.COUNTED
         before = [fn.captured for fn in fns]
         graph = torch.cuda.CUDAGraph()
         stamps0 = ring.captured if ring is not None else 0

@@ -498,7 +498,7 @@ def _counters(buf: _Buffers) -> dict:
 
     V = sys.modules.get(__package__ + ".ops.voting")
     if V is not None:
-        for fn in (V.vote_state, V.vote_histogram):
+        for fn in V.COUNTED:
             out[f"{fn.__name__}.ran_launches"] = V.ran_launches(fn)
     out["trace.spans_dropped"] = buf.dropped
     out["trace.stamps_dropped"] = buf.stamps_dropped

@@ -108,6 +108,7 @@ def test_launch_counts_issued_captured_and_ran(monkeypatch):
     monkeypatch.setattr(fn, "captured", 0)
     monkeypatch.setattr(fn, "counts", {})
     monkeypatch.setattr(V.vote_state, "counts", {})
+    monkeypatch.setattr(V.vote_decrement, "counts", {})
     cpu = torch.device("cpu")
     capturing = [True]
     # a CPU build of torch cannot ask whether a stream is capturing
@@ -115,7 +116,7 @@ def test_launch_counts_issued_captured_and_ran(monkeypatch):
     with pytest.raises(RuntimeError, match="prepare_counts"):
         V._count(fn, cpu)
     V.prepare_counts(cpu)
-    assert set(V.vote_state.counts) == {cpu}
+    assert set(V.vote_state.counts) == set(V.vote_decrement.counts) == {cpu}
     for _ in range(2):
         V._count(fn, cpu)
     capturing[0] = False

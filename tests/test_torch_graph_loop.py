@@ -177,7 +177,7 @@ def test_removed_cell_keys_match_jax_at_sub_chunk(n_rem):
     kj = np.asarray(JH._removed_cell_keys(
         jnp.asarray(X), jnp.asarray(c1), jnp.asarray(c2), jnp.float32(d), jnp.float32(dx),
         jnp.int32(num_x), jnp.asarray(removed), jnp.int32(n_rem), 512, NX))
-    kt = TH._removed_cell_keys(
+    kt = V._removed_cell_keys(
         torch.from_numpy(X), torch.from_numpy(c1), torch.from_numpy(c2),
         torch.tensor(d / np.float32(2.0)), torch.tensor(dx), torch.tensor(num_x),
         torch.from_numpy(removed), torch.tensor(n_rem), 512, NX)

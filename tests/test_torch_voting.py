@@ -17,8 +17,8 @@ from pointcloud_segmentation_tpu.ops.voting_pallas import vote_histogram_pallas
 from pointcloud_segmentation_tpu.sphere import hough_space
 
 from pointcloud_segmentation_tpu_torch.ops import voting as V
-from pointcloud_segmentation_tpu_torch.ops.hough import (
-    _compact_removed, _removed_cell_keys)
+from pointcloud_segmentation_tpu_torch.ops.hough import _pad_dirs_to_tile
+from pointcloud_segmentation_tpu_torch.ops.voting import _compact_removed, _removed_cell_keys
 
 torch.set_num_threads(2)
 
@@ -150,6 +150,48 @@ def test_removed_cell_keys_match_xla():
                             n_rem, 400, NX)
     np.testing.assert_array_equal(kt.numpy(), kj)
     assert (kj[:, n_rem:] == NX * NX).all()
+
+
+@pytest.mark.parametrize("n_rem,case", [(0, "f32"), (1, "f32"), (37, "f32"), (512, "f32"),
+                                        (37, "f64"), (512, "f64")])
+def test_vote_decrement_plain_matches_jax(n_rem, case):
+    """The lazy increment's decrement: best less the removed points' votes
+    in each direction's best cell, against the JAX package's
+    `_removed_cell_keys` at its 512 columns (dead columns past n_rem)
+    compared with key and summed.  The table is the g2 one padded to a tile
+    with copies of direction 0; "f64" bins the float32 copy of a float64
+    cloud, as the parity mode does."""
+    NX, n = 79, 800
+    p = problem(17 + n_rem, n, 2, active_frac=0.9)
+    if case == "f64":
+        x64 = p[0].astype(np.float64) + np.random.default_rng(n_rem).uniform(-1e-6, 1e-6,
+                                                                             p[0].shape)
+        p = (x64.astype(np.float32),) + p[1:]
+    X, a, _, _, half, dx, nx = to_torch(*p)
+    Xj, aj, c1j, c2j, dj, dxj, nxj = to_jax(*p)
+    _, c1p, c2p = H._pad_dirs_to_tile(c1j, c1j, c2j)
+    assert c1p.shape[0] > p[2].shape[0]               # tile-padding directions
+    c1t, c2t = torch.tensor(np.asarray(c1p)), torch.tensor(np.asarray(c2p))
+    assert torch.equal(c1t, _pad_dirs_to_tile(*(torch.from_numpy(t) for t in
+                                                (p[2], p[2], p[3])))[1])
+    best, key, _ = V.vote_state(X, a, c1t, c2t, half, dx, nx, NX)
+    # the removed points: those in direction 0's best cell first
+    xi, yi = V.vote_bins(X, c1t[:1], c2t[:1], half, dx, nx)
+    in_best = (xi[0] * NX + yi[0] == key[0]).numpy() & p[1]
+    order = np.concatenate([np.flatnonzero(in_best), np.flatnonzero(p[1] & ~in_best)])
+    removed = np.zeros(n, bool)
+    removed[order[:n_rem]] = True
+    keys_r = H._removed_cell_keys(Xj, c1p, c2p, dj, dxj, nxj, jnp.asarray(removed),
+                                  jnp.int32(n_rem), 512, NX)
+    want = np.asarray(best) - np.asarray((keys_r == jnp.asarray(key.numpy())[:, None])
+                                         .sum(axis=1))
+    got = V.vote_decrement_plain(X, torch.from_numpy(removed), c1t, c2t, half, dx, nx, NX,
+                                 key, best)
+    assert got.dtype == torch.int32 and got.shape == best.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(V.vote_decrement(X, torch.from_numpy(removed), c1t, c2t, half, dx,
+                                        nx, NX, key, best), got)
+    assert (int(got[0]) < int(best[0])) == (n_rem > 0)
 
 
 @pytest.mark.parametrize("granularity", [2, 6])
