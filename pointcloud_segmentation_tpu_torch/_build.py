@@ -3,7 +3,7 @@
 One library, from three sources in one nvcc call: ``voting.cu`` (the voting
 kernels), ``graph_cond.cu`` (the conditional nodes of the captured
 frame, ops/hough.py `run_if`) and ``trace.cu`` (the tracer's device
-stamps, trace.py).  It has a plain C interface (no PyTorch
+stamps and tallies, trace.py).  It has a plain C interface (no PyTorch
 headers), so nvcc builds it in seconds.  It is built at first use into
 ``build/torch_kernels/`` beside the package, keyed by a hash of the sources
 and the flags, so unchanged sources are built once per checkout.  Nothing
@@ -61,6 +61,8 @@ _SIGNATURES = {
     "pcs_capture_nodes": (_P, ctypes.POINTER(ctypes.c_ulonglong)),
     # rows, counter, n_rows, width, slot, stream
     "pcs_trace_stamp": (_P, _P, _I, _I, _I, _P),
+    # rows, counter, n_rows, width, slot, stream
+    "pcs_trace_tally": (_P, _P, _I, _I, _I, _P),
     # out (one int64 on the card), stream
     "pcs_trace_now": (_P, _P),
 }

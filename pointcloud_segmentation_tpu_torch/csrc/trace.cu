@@ -1,4 +1,4 @@
-// Device stamps of the port's tracer (trace.py), bound to Python with ctypes.
+// Device stamps and tallies of the port's tracer (trace.py), bound to Python with ctypes.
 //
 // Replaces no TPU kernel: the JAX program is one XLA executable that nothing
 // times from inside, and the port's frame is one CUDA graph whose inside a
@@ -16,6 +16,11 @@
 // every later stamp writes its own slot of that row.  A stamp inside a
 // conditional node whose flag is false never runs, so its slot reads 0.
 // Stamps of one row run in stream order: one frame of a ring in flight.
+//
+// A tally is the same kind of kernel for a count: it adds one to its own
+// slot of the row the counter selects (the frame's row, which slot 0
+// zeroed), so a row carries the frame's counts beside its stamps.  Inside a
+// conditional node it counts the replays whose flag held.
 //
 // Each entry returns a CUDA error code (0 on success).
 
@@ -47,6 +52,12 @@ __global__ void stamp_kernel(long long* rows, long long* counter, int n_rows, in
   row[slot] = now;
 }
 
+__global__ void tally_kernel(long long* rows, const long long* counter, int n_rows,
+                             int width, int slot) {
+  const long long seq = counter[0] - 1;
+  rows[(seq % n_rows) * width + slot] += 1;
+}
+
 __global__ void now_kernel(long long* out) { out[0] = global_ns(); }
 
 }  // namespace
@@ -55,6 +66,14 @@ extern "C" int pcs_trace_stamp(void* rows, void* counter, int n_rows, int width,
                                void* stream) {
   stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<long long*>(rows), static_cast<long long*>(counter), n_rows, width, slot);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int pcs_trace_tally(void* rows, void* counter, int n_rows, int width, int slot,
+                               void* stream) {
+  tally_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<long long*>(rows), static_cast<const long long*>(counter), n_rows, width,
+      slot);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -87,6 +87,10 @@ PLAIN = Voting(V.vote_state_plain, V.vote_histogram_plain, V.vote_decrement_plai
 _VOTE_TILE = 128       # direction tables are padded to a multiple of this
 _SUB_CHUNK = 512       # removed-point columns of the incremental update
 _SUSPECT_CAP = 2048    # lazy voting: most directions re-examined per round
+# the tracer's per-frame counts of the update's branches (trace.tally): the
+# rounds that took the increment (carry subtract, lazy decrement) and those
+# that rebuilt the voting state
+TALLIES = ("hough.increment_rounds", "hough.rebuild_rounds")
 
 
 class SegmentBatch(NamedTuple):
@@ -609,8 +613,14 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
         Only the branch taken issues its ops, kernels and the carry
         compaction included."""
         inc, rebuild = branch == 1, branch == 2
+
+        def rebuild_state():
+            trace.tally(TALLIES[1])
+            store(vs, vstate_init(active_next))
+
         if lazy:
             def increment():
+                trace.tally(TALLIES[0])
                 dec, suspect = decrement(vs, m2)
                 n_sus = suspect.sum()
                 # the tier (JAX `lax.switch(sel, [s_tier, s_cap, rebuild])`),
@@ -626,24 +636,26 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
                 run_if(over, lambda: store(vs, vstate_init(active_next)))
 
             run_if(inc, increment)
-            run_if(rebuild, lambda: store(vs, vstate_init(active_next)))
+            run_if(rebuild, rebuild_state)
             return
         votes, row_max = vs
 
         def subtract():
+            trace.tally(TALLIES[0])
             Xr, col_live = _compact_removed(Xv, m2, n_rem, sub_chunk)
             votes.sub_(voting.vote_histogram(Xr.contiguous(), col_live, c1, c2, half32,
                                              dx32, num_x, NX))
             row_max.copy_(votes.amax(dim=(1, 2)))
 
         run_if(inc, subtract)
-        run_if(rebuild, lambda: store(vs, vstate_init(active_next)))
+        run_if(rebuild, rebuild_state)
 
     def vstate_update_eager(vs, branch: int, m2, n_rem: int, active_next):
         """`vstate_update`'s branch 1 or 2 alone, for the eager loop, which
         has read the branch and n_rem on the host: the carry subtract's
         removed points compacted to n_rem columns, the lazy tier picked by a
         host read of the suspect count."""
+        trace.tally(TALLIES[branch - 1])
         if branch == 2:
             return vstate_init(active_next)
         if lazy:
@@ -777,6 +789,7 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
             ending = ending | (s.nlines + counted >= cfg.opt_nlines)
         live_next = proceed & ~ending
         branch = torch.where(live_next, torch.where(nv <= sub_chunk, 1, 2), 0)
+        trace.stamp("round[{}].vote.begin", rnd)
         if loop == "eager":
             # host read, once a round: the branch and the removed count
             branch, n_rem = torch.stack([branch, nv]).tolist()

@@ -2,7 +2,7 @@
 device stamps inside the captured frame, exported on one clock.
 
 Off by default.  While it is off, `span()` returns one shared no-op object,
-`stamp()`, `count()`, `begin()` and `mark()` return at once, and nothing is
+`stamp()`, `tally()`, `count()`, `begin()` and `mark()` return at once, and nothing is
 allocated a frame.  `enable()` turns it on for the whole process:
 
   * Host spans: a name, a start and an end on ``time.perf_counter_ns()``
@@ -20,6 +20,12 @@ allocated a frame.  `enable()` turns it on for the whole process:
     (``hough.live_rounds``).  A step captured with tracing off holds no
     stamp.  On the CPU, where the step runs the frame eagerly, `stamp()`
     writes ``perf_counter_ns()`` at the same call sites into a host `Ring`.
+  * Device tallies: beside its stamps, a frame's row holds counts that
+    `tally()` adds to, each from a one-thread kernel in the captured frame
+    (inside a conditional node, a count of the replays whose flag held;
+    on the CPU a host add).  The Hough loop tallies each round that took
+    the increment branch and each that rebuilt (`ops.hough.TALLIES`).
+    Read only at export, with the stamps.
   * One clock: at `enable()` and at `export()` the tracer brackets an eager
     stamp and a synchronise between two ``perf_counter_ns()`` reads, 16
     times a card, keeps the tightest pair, and maps every device stamp to
@@ -30,13 +36,15 @@ allocated a frame.  `enable()` turns it on for the whole process:
 
 `export()` returns Chrome trace-event JSON as a dict (Perfetto opens it): an
 ``"X"`` event per span (process "host", one track a thread) and per device
-stage (one process a ring), a ``"C"`` event of each frame's live rounds,
-and beside ``traceEvents`` the clock block, the frames' stamps on host ns
-and the counters.  `write(path)` writes the same dict.
+stage (one process a ring), a ``"C"`` event of each frame's live rounds and
+of each of its tallies, and beside ``traceEvents`` the clock block, the
+frames' stamps on host ns and tallies, and the counters (a tally's is its
+sum over the frames).  `write(path)` writes the same dict.
 
 The stages of a frame (slot order): ``frame.begin``, ``preproc.end``,
 ``hough.init.end``, for each round r that runs ``round[r].begin``,
-``round[r].gates.end`` and ``round[r].end``, then ``segments.end``,
+``round[r].gates.end``, ``round[r].vote.begin`` (the segment write ends and
+the voting state's update begins) and ``round[r].end``, then ``segments.end``,
 ``world.end`` and ``frame.end``.  A stage ``X`` is the interval that ends
 at ``X.end``: from ``X.begin`` where there is one, else from the stamp
 before it.
@@ -275,7 +283,8 @@ class Ring:
     in the order of their first stamp.  A card's ring is made before any
     capture (a tensor made during one would be the graph's); `replayed`
     notes each replay's frame on the host.  `seq` counts the frames stamped,
-    the card's counter's host mirror."""
+    the card's counter's host mirror.  A slot named by `tally` holds a count
+    of the frame, not a time (`tallies`, in slot order)."""
 
     def __init__(self, device=None):
         import numpy as np
@@ -286,7 +295,8 @@ class Ring:
         self.names = ["frame.begin"]
         self.slots = {"frame.begin": 0}
         self.seq = self.first = 0
-        self.captured = 0                  # stamp kernels captured
+        self.captured = 0                  # stamp and tally kernels captured
+        self.tallies: list = []
         self.t = array("d", [math.nan]) * RING_ROWS
         self.replay = array("q", [-1]) * RING_ROWS
         if device is None:
@@ -341,6 +351,30 @@ class Ring:
             raise RuntimeError(f"trace stamp launch failed: CUDA error {err}")
         self.captured += 1
 
+    def tally(self, name: str) -> None:
+        """One more `name` in the frame's row (the frame stamped last)."""
+        slot = self.slot(name)
+        if slot < 0:
+            return
+        if name not in self.tallies:
+            self.tallies.append(name)
+        if self.device is None:
+            if self.seq:
+                self.rows[(self.seq - 1) % RING_ROWS, slot] += 1
+            return
+        import torch
+
+        from ._build import load_library
+
+        if not torch.cuda.is_current_stream_capturing():
+            return
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        err = load_library().pcs_trace_tally(self.rows.data_ptr(), self.counter.data_ptr(),
+                                             RING_ROWS, RING_WIDTH, slot, stream)
+        if err != 0:
+            raise RuntimeError(f"trace tally launch failed: CUDA error {err}")
+        self.captured += 1
+
     def replayed(self, replay: int) -> None:
         """One replay of the ring's graph was queued: its frame is the one
         the thread's open span belongs to."""
@@ -350,8 +384,8 @@ class Ring:
         self.seq += 1
 
     def frames(self) -> list:
-        """(seq, t, replay, {stage: raw ns}) of the frames stamped since the
-        last enable() that the ring still holds."""
+        """(seq, t, replay, {stage: raw ns}, {tally: count}) of the frames
+        stamped since the last enable() that the ring still holds."""
         import torch
 
         if self.device is None:
@@ -365,9 +399,11 @@ class Ring:
             row = rows[k]
             if int(row[-1]) != seq + 1:
                 continue                    # not stamped, or written over
-            stamps = {self.names[s]: int(row[s]) for s in range(len(self.names)) if row[s]}
+            stamps = {self.names[s]: int(row[s]) for s in range(len(self.names))
+                      if row[s] and self.names[s] not in self.tallies}
+            counts = {name: int(row[self.slots[name]]) for name in self.tallies}
             t = self.t[k]
-            out.append((seq, None if math.isnan(t) else t, int(self.replay[k]), stamps))
+            out.append((seq, None if math.isnan(t) else t, int(self.replay[k]), stamps, counts))
         return out
 
 
@@ -391,6 +427,16 @@ def stamping(ring: Optional[Ring]):
     """Send this thread's stamps to `ring` inside the block (nothing when
     `ring` is None)."""
     return NOOP if ring is None else _Stamping(ring)
+
+
+def tally(name: str) -> None:
+    """One more `name` in the frame being stamped: into the thread's ring,
+    when tracing is on and a frame step set one (module docstring)."""
+    if not _on:
+        return
+    ring = getattr(_tl, "ring", None)
+    if ring is not None:
+        ring.tally(name)
 
 
 def stamp(stage: str, index: Optional[int] = None) -> None:
@@ -500,6 +546,10 @@ def _counters(buf: _Buffers) -> dict:
     if V is not None:
         for fn in V.COUNTED:
             out[f"{fn.__name__}.ran_launches"] = V.ran_launches(fn)
+    H = sys.modules.get(__package__ + ".ops.hough")
+    if H is not None:
+        for name in H.TALLIES:           # 0 where no frame ran the branch
+            out.setdefault(name, 0)
     out["trace.spans_dropped"] = buf.dropped
     out["trace.stamps_dropped"] = buf.stamps_dropped
     return out
@@ -536,18 +586,21 @@ def export() -> dict:
                                 "frame": None if math.isnan(f) else f}})
     frames = []
     live_total = 0
+    tallied: dict = {}
     for ring in rings:
         pid = 1 + ring.id
         where = "host clock" if ring.device is None else str(ring.device)
         events.append({"ph": "M", "name": "process_name", "pid": pid,
                        "args": {"name": f"frame stages ({where}), ring {ring.id}"}})
         pairs = buf.calibrations.get(ring.device)
-        for seq, t, replay, raw in ring.frames():
+        for seq, t, replay, raw, counts in ring.frames():
             host = raw if ring.device is None else {k: to_host(pairs, v) for k, v in raw.items()}
             live = live_rounds(raw)
             live_total += live
+            for name, n in counts.items():
+                tallied[name] = tallied.get(name, 0) + n
             rec = {"ring": ring.id, "device": where, "seq": seq, "t": t, "replay": replay,
-                   "live_rounds": live, "stamps": host}
+                   "live_rounds": live, "stamps": host, "tallies": counts}
             if ring.device is not None:
                 rec["device_ns"] = raw
             frames.append(rec)
@@ -556,9 +609,11 @@ def export() -> dict:
                 events.append({"ph": "X", "name": name, "cat": "device", "pid": pid, "tid": 1,
                                "ts": us(s), "dur": (e - s) / 1e3, "args": args})
             if "frame.begin" in host:
-                events.append({"ph": "C", "name": "hough.live_rounds", "pid": pid,
-                               "ts": us(host["frame.begin"]), "args": {"value": live}})
+                for name, n in [("hough.live_rounds", live), *counts.items()]:
+                    events.append({"ph": "C", "name": name, "pid": pid,
+                                   "ts": us(host["frame.begin"]), "args": {"value": n}})
     counters = _counters(buf)
+    counters.update(tallied)
     counters["hough.live_rounds"] = live_total
     return {
         "traceEvents": events,

@@ -76,7 +76,8 @@ def test_off_the_span_is_the_shared_noop_and_frames_leave_the_tracer_empty():
 def stage_order(live):
     names = ["frame.begin", "preproc.end", "hough.init.end"]
     for r in range(live):
-        names += [f"round[{r}].begin", f"round[{r}].gates.end", f"round[{r}].end"]
+        names += [f"round[{r}].begin", f"round[{r}].gates.end", f"round[{r}].vote.begin",
+                  f"round[{r}].end"]
     return names + ["segments.end", "world.end", "frame.end"]
 
 
@@ -136,6 +137,78 @@ def test_live_rounds_are_the_rounds_the_eager_loop_runs(opt_nlines, monkeypatch)
     assert max(rounds) > 0
     if opt_nlines:
         assert max(rounds) <= opt_nlines
+
+
+def eager_branches(cfg, frames):
+    """Each frame's (increment rounds, rebuild rounds) as the eager loop read
+    them on the host, counted from the voting calls it issued: a carry
+    frame votes a histogram at its init, one of the removed points (at most
+    `_SUB_CHUNK` rows) a subtract and one of every point a rebuild; a lazy
+    frame decrements once an increment, and beyond its init votes the state
+    once an increment (the re-exam) and once a rebuild."""
+    calls = []
+
+    def counted(name, fn):
+        return lambda Xs, *a: calls.append((name, Xs.shape[0])) or fn(Xs, *a)
+
+    voting = H.Voting(*(counted(n, f) for n, f in zip(("state", "hist", "dec"), H.PLAIN)))
+    eng = SegmentationEngine(cfg, device="cpu", loop="eager", voting=voting)
+    out = []
+    for fr in frames:
+        calls.clear()
+        run(eng, [fr])
+        if cfg.voting_mode == "carry":
+            full = [n for name, n in calls if name == "hist"]
+            inc = sum(1 for n in full[1:] if n <= H._SUB_CHUNK)
+            out.append((inc, len(full[1:]) - inc))
+        else:
+            inc = sum(1 for name, _ in calls if name == "dec")
+            n_state = sum(1 for name, _ in calls if name == "state")
+            out.append((inc, max(n_state - 1 - inc, 0)))
+    return out
+
+
+@pytest.mark.parametrize("voting", ["carry", "lazy"])
+def test_the_update_tallies_are_the_branches_the_eager_loop_read(voting, monkeypatch):
+    """A traced CPU replay's per-frame tallies of increment and rebuild rounds
+    equal the branches the eager loop read, their sums are the exported
+    counters and the live rounds less each frame's last, and every live
+    round stamps one ``round[r].vote.begin``.  A 48-column update makes a
+    round that removes more points rebuild, so both branches run."""
+    monkeypatch.setattr(H, "_SUB_CHUNK", 48)
+    frames = small_frames(4)
+    cfg = small_cfg(voting=voting)
+    assert cfg.voting_mode == voting
+    want = eager_branches(cfg, frames)
+    assert sum(i for i, _ in want) > 0 and sum(r for _, r in want) > 0
+    trace.enable()
+    run(SegmentationEngine(cfg, device="cpu", loop="cond"), frames)
+    out = trace.export()
+    got = [(f["tallies"]["hough.increment_rounds"], f["tallies"]["hough.rebuild_rounds"])
+           for f in out["frames"]]
+    assert got == want
+    c = out["counters"]
+    assert c["hough.increment_rounds"] == sum(i for i, _ in want)
+    assert c["hough.rebuild_rounds"] == sum(r for _, r in want)
+    for f, (i, r) in zip(out["frames"], want):
+        assert i + r == f["live_rounds"] - 1
+        votes = [k for k in f["stamps"] if k.endswith("].vote.begin")]
+        assert len(votes) == f["live_rounds"]
+    assert {e["name"] for e in out["traceEvents"] if e["ph"] == "C"} == {
+        "hough.live_rounds", *H.TALLIES}
+
+
+def test_a_frame_with_no_update_exports_its_tallies_as_zero():
+    """Tallies no round made are exported as 0 (one live round a frame: the
+    last round takes no update)."""
+    trace.enable()
+    run(SegmentationEngine(small_cfg(opt_nlines=1), device="cpu", loop="cond"),
+        small_frames(2))
+    out = trace.export()
+    assert [f["live_rounds"] for f in out["frames"]] == [1, 1]
+    assert all(f["tallies"] == {} for f in out["frames"])
+    assert out["counters"]["hough.increment_rounds"] == 0
+    assert out["counters"]["hough.rebuild_rounds"] == 0
 
 
 def test_answers_records_and_world_are_the_same_with_tracing_on_and_off():
