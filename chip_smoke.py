@@ -139,6 +139,16 @@ DECREMENT_OPS_PER_PAIR = 24
 # nodes of the captured g6 frame while the decrement was a chain of PyTorch
 # ops over a (20,608, 512) tensor (an H100, tracing off)
 CHAIN_GRAPH_NODES_G6 = 7_268
+# nodes of the captured frames while each round's gates were a chain of
+# ~460 PyTorch ops (an H100, tracing off): the new frames hold at least
+# GATES_NODES_SAVED fewer
+GATES_CHAIN_GRAPH_NODES = {"g6 lazy": 6_848, "g4 carry": 6_307}
+GATES_NODES_SAVED = 3_000
+# float32 operations of the gates a point, counted from the chain: two
+# distance tests on each active point (22 each), the first fit's count, sum
+# and scatter on each of its points (19), and on each inlier the second fit's
+# and the covariance's sums and scatters, t, radius and two pn (about 60)
+GATES_OPS_ACTIVE, GATES_OPS_FIT, GATES_OPS_INLIER = 44, 19, 60
 
 
 def fail(msg: str) -> None:
@@ -289,7 +299,8 @@ class Shapes:
         self.card = card
         self.lib = load_library()
         self.earlier = earlier   # an earlier library, timed beside this one
-        self.errs = {"vote_state": 0, "vote_histogram": 0, "vote_decrement": 0}
+        self.errs = {"vote_state": 0, "vote_histogram": 0, "vote_decrement": 0,
+                     "round_gates": 0.0}
         self.times = []
 
     def state(self, label, p, c1, c2, active=None, timed=False):
@@ -355,6 +366,31 @@ class Shapes:
               f"{n_rem} removed, NX {NX}): kernel {ms:.4f} ms, bound {b_ms:.5f} ms "
               f"(operations, {b_ms / ms:.1%} of it), plain {plain_ms:.4f} ms, library none "
               f"[{self.card}]", flush=True)
+
+    def gates(self, label, args, nv):
+        """The gates kernel's ms on one round (CUDA-graph replays of its
+        launch alone), the chain's ms in a graph (what a captured frame paid
+        for it), and both bounds: each input read and each output written
+        once, and the float32 operations of the chain (GATES_OPS_*)."""
+        from pointcloud_segmentation_tpu_torch.ops import gates as G
+
+        Xs, act = args[0], args[2]
+        N, n_act, item = Xs.shape[0], int(act.sum()), Xs.element_size()
+        ms = graph_ms(gates_launcher(self.lib, args))
+        plain_ms = graph_ms(lambda: G.round_gates_plain(*args), reps=5, replays=3)
+        b_bytes = (2 * N * 3 * item + 2 * N + 64 * item) / PEAK_BYTES_PER_S * 1e3
+        b_ops = (GATES_OPS_ACTIVE * n_act + (GATES_OPS_FIT + GATES_OPS_INLIER) * nv) \
+            / PEAK_F32_FLOPS * 1e3
+        b_ms, b_by = (b_ops, "operations") if b_ops >= b_bytes else (b_bytes, "bytes")
+        rec = {"name": "round_gates", "shape": label, "rows": 1, "n": N, "active": n_act,
+               "inliers": nv, "nx": args[-1], "ms": ms, "plain_ms": plain_ms,
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+               "bytes_bound_ms": b_bytes, "operations_bound_ms": b_ops, "earlier_ms": None}
+        self.times.append(rec)
+        print(f"time  round_gates, {label} (N {N}, {n_act} active, {nv} inliers, NX "
+              f"{args[-1]}): kernel {ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}, "
+              f"{b_ms / ms:.2%} of it; bytes {b_bytes:.6f}, operations {b_ops:.6f}), plain "
+              f"chain {plain_ms:.4f} ms in a graph, library none [{self.card}]", flush=True)
 
     def time(self, name, label, Xs, act, c1, c2, half, dx, nx, NX, compare=False):
         """Kernel ms (CUDA-graph replays of the kernel's launch alone), plain
@@ -490,6 +526,88 @@ def kernel_checks(dev, frame, card, earlier=None):
     return sh
 
 
+def record_gates(cfg, frames, dev) -> list:
+    """The arguments of every round's gates over the eager kernel replay of
+    `frames` at `cfg` (the main path's rounds), each tensor copied."""
+    from pointcloud_segmentation_tpu_torch import SegmentationEngine
+    from pointcloud_segmentation_tpu_torch.ops import gates as G
+    from pointcloud_segmentation_tpu_torch.ops import voting as V
+    from pointcloud_segmentation_tpu_torch.ops.hough import Voting
+
+    rounds = []
+
+    def record(*args):
+        rounds.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        return G.round_gates(*args)
+
+    voting = Voting(V.vote_state, V.vote_histogram, V.vote_decrement, record)
+    SegmentationEngine(cfg, dev, voting=voting, loop="eager").run_replay(frames)
+    return rounds
+
+
+def gates_gap(k, p) -> tuple:
+    """(the exact outputs equal, the largest difference of the float ones)
+    of the gates kernel's outputs `k` against the chain's `p`: the inliers,
+    their count and the three flags; a_w, bc, the eigenvalues, both
+    endpoints a_w + t * bc (which carry t_min and t_max), the radius size
+    and the PCA coefficient."""
+    exact = all(torch.equal(getattr(k, f), getattr(p, f))
+                for f in ("m2", "nv", "ok3", "bx_zero", "accept"))
+
+    def floats(g):
+        return torch.cat([g.a_w, g.bc, g.eig, g.a_w + g.t_min * g.bc, g.a_w + g.t_max * g.bc,
+                          g.closest.reshape(1), g.pca_coeff.reshape(1)]).double()
+
+    return exact, float((floats(k) - floats(p)).abs().max())
+
+
+def gates_launcher(lib, args):
+    """One launch of the gates kernel from `lib` on a round's `args`, its
+    outputs made once: the kernel alone, without the launch counter."""
+    from pointcloud_segmentation_tpu_torch.ops import gates as G
+
+    outs = G._outputs(args[0])
+
+    def run(keep=outs):                    # keep: the tensors behind the launch
+        err = G._launch(lib, outs, *args)
+        if err:
+            fail(f"round_gates launch failed: CUDA error {err}")
+
+    return run
+
+
+def gates_phase(dev, frames, card, sh):
+    """The gates kernel against its plain chain on every round of the main
+    path's g6 and g4 replays (exact: the inliers, their count and the three
+    flags; floats within 5e-3 on the rounds that found a line), then timed
+    beside the chain (both in a CUDA graph) at the rounds of median and of
+    largest inlier count, with bounds in bytes and in operations."""
+    from pointcloud_segmentation_tpu_torch.config import default_config
+    from pointcloud_segmentation_tpu_torch.ops import gates as G
+
+    for label, cfg in (("g6", default_config()), ("g4", default_config(granularity=4))):
+        rounds = record_gates(cfg, frames, dev)
+        worst, bad, nvs = 0.0, [], []
+        for k, args in enumerate(rounds):
+            got, want = G.round_gates(*args), G.round_gates_plain(*args)
+            exact, gap = gates_gap(got, want)
+            if not exact:
+                bad.append(k)
+            if bool(want.ok3):
+                worst = max(worst, gap)
+            nvs.append(int(want.nv))
+        sh.errs["round_gates"] = max(sh.errs["round_gates"], worst)
+        n_ok = sum(1 for a in rounds if bool(G.round_gates_plain(*a).ok3))
+        check(not bad and worst <= 5e-3,
+              f"round_gates == plain chain on every round of the {label} replay "
+              f"({len(rounds)} rounds, N {rounds[0][0].shape[0]}, {n_ok} found a line, "
+              f"inliers {min(nvs)}-{max(nvs)}): m2, nv, ok3, bx_zero and accept equal "
+              f"(rounds that differ {bad}); floats within 5e-3, largest {worst:.3g}")
+        order = sorted(range(len(rounds)), key=lambda k: nvs[k])
+        for tag, k in (("median", order[len(order) // 2]), ("largest", order[-1])):
+            sh.gates(f"{label} replay, the round of {tag} inlier count", rounds[k], nvs[k])
+
+
 SHARD_LABEL = "a direction shard, {gran}, 1 of {n}"
 
 
@@ -575,26 +693,27 @@ class Counted:
 def replay(cfg, frames, dev, voting, per_frame=False, loop=None):
     """One engine (`loop`, or its default loop for `voting`) over the frames:
     records, world segments and state at the end, the engine, and with
-    `per_frame` the world state after each frame and the decrement's
-    launches issued so far after each frame."""
+    `per_frame` the world state after each frame and the decrement's and
+    the gates' launches issued so far after each frame."""
     from pointcloud_segmentation_tpu_torch import SegmentationEngine
     from pointcloud_segmentation_tpu_torch.convert import world_state_to_numpy
     from pointcloud_segmentation_tpu_torch.ops import voting as V
 
     eng = SegmentationEngine(cfg, dev, voting=voting, loop=loop)
     if per_frame:
-        recs, states, decrements = [], [], []
+        recs, states, decrements, gates = [], [], [], []
         for fr in frames:
             recs += eng.run_replay([fr])
             states.append(world_state_to_numpy(eng.state))
             decrements.append(V.vote_decrement.launches)
+            gates.append(V.round_gates.launches)
     else:
         recs = eng.run_replay(frames)
     torch.cuda.synchronize()
     out = {"records": recs, "segments": eng.world_segments(),
            "state": world_state_to_numpy(eng.state), "engine": eng}
     if per_frame:
-        out["states"], out["decrements"] = states, decrements
+        out["states"], out["decrements"], out["gates"] = states, decrements, gates
     return out
 
 
@@ -637,6 +756,7 @@ def counted_voting():
     V.vote_state.launches = 0
     V.vote_histogram.launches = 0
     V.vote_decrement.launches = 0
+    V.round_gates.launches = 0
     return Voting(Counted(V.vote_state), Counted(V.vote_histogram))
 
 
@@ -667,6 +787,7 @@ def counted_run(label, cfg, frames, dev, name, per_frame=False):
     n = launches_of(label, voting, name)
     run["shapes"] = dict(getattr(voting, name).shapes)
     run["decrement_launches"] = V.vote_decrement.launches    # one an increment round
+    run["gates_launches"] = V.round_gates.launches           # one a live round
     return run, n
 
 
@@ -1110,6 +1231,14 @@ def main_path(cfg6, cfg4, frames, dev, k6, k4, card):
                   f"{label} replay through the cond step: vote_decrement ran in {dec_ran} of "
                   f"the {dec_captured} launches its graphs hold: the eager replay's {n_inc} "
                   f"increment rounds and frame 0's {first} again in the capture's warm-up")
+        # one gates launch a live round, each of which ran
+        gates_captured, gates_ran = loop_counts(V.round_gates)
+        launches[f"round_gates {label}"] = (gates_captured, gates_ran)
+        n_rounds, first = eager["gates_launches"], eager["gates"][0]
+        check(0 < gates_ran == n_rounds + first < gates_captured,
+              f"{label} replay through the cond step: round_gates ran in {gates_ran} of the "
+              f"{gates_captured} launches its graphs hold: the eager replay's {n_rounds} "
+              f"rounds and frame 0's {first} again in the capture's warm-up")
         bad = [k for k, (r, e, a, b) in enumerate(zip(run["records"], eager["records"],
                                                        run["states"], eager["states"]))
                if (r["seg_vec_size"], r["nblines"]) != (e["seg_vec_size"], e["nblines"])
@@ -1125,10 +1254,12 @@ def main_path(cfg6, cfg4, frames, dev, k6, k4, card):
               f"conditional nodes [{card}]", flush=True)
         check(cap["cond_nodes"] > round_count(cfg),
               f"{label}: the cond graph holds a node a round and more for the branches")
-        chain = (f" ({CHAIN_GRAPH_NODES_G6:,} with the decrement as a chain of ops)"
+        chain = (f", {CHAIN_GRAPH_NODES_G6:,} with the decrement as a chain of ops"
                  if name == "vote_state" else "")
-        print(f"      cond {label}: the captured frame holds {cap['graph_nodes']:,} graph "
-              f"nodes, its bodies' included{chain}", flush=True)
+        before = GATES_CHAIN_GRAPH_NODES[label]
+        check(cap["graph_nodes"] <= before - GATES_NODES_SAVED,
+              f"cond {label}: the captured frame holds {cap['graph_nodes']:,} graph nodes, its "
+              f"bodies' included ({before:,} with the gates as a chain of ops{chain})")
         runs[label]["cond"] = run
     return runs, launches
 
@@ -2903,7 +3034,7 @@ def main() -> None:
         print("one stack only: no result lines", flush=True)
         sys.exit(3)
     if args.graph_only:
-        kernel_checks(dev, frames[len(frames) // 2], card)
+        gates_phase(dev, frames, card, kernel_checks(dev, frames[len(frames) // 2], card))
         k6, _ = counted_run("g6 replay", cfg6, frames, dev, "vote_state", per_frame=True)
         k4, _ = counted_run("g4 replay", cfg4, frames, dev, "vote_histogram", per_frame=True)
         k6s, _ = counted_run("g6 replay at radius 0.015", default_config(radius_sizes=(0.015,)),
@@ -2946,6 +3077,7 @@ def whole_run(cfg6, cfg4, frames, dev, card, earlier, oracle6):
     from pointcloud_segmentation_tpu_torch.ops.hough import PLAIN
 
     sh = kernel_checks(dev, frames[len(frames) // 2], card, earlier)
+    gates_phase(dev, frames, card, sh)
     golden_checks(dev)
 
     cfg6s = default_config(radius_sizes=(0.015,))
@@ -3040,6 +3172,17 @@ def whole_run(cfg6, cfg4, frames, dev, card, earlier, oracle6):
                                           "bound_by", "earlier_ms")}
                        for r in shapes]})
 
+    gshapes = [r for r in sh.times if r["name"] == "round_gates"]
+    head = gshapes[0]                      # the g6 replay's round of median inliers
+    captured, ran = launches["round_gates g6 lazy"]
+    kernels.append({
+        "name": "round_gates", "route": "cuda",
+        "source": "pointcloud_segmentation_tpu_torch/csrc/gates.cu",
+        "replaces": "none (the XLA gate chain of pointcloud_segmentation_tpu/ops/hough.py "
+                    "_round)", "launches": ran, "launches_captured": captured,
+        "launches_ran": ran, "max_abs_err": sh.errs["round_gates"], "ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": None, "shapes": gshapes})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

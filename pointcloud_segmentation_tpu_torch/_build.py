@@ -1,10 +1,11 @@
 """Builds the CUDA sources under ``csrc/`` with nvcc and loads them with ctypes.
 
-One library, from three sources in one nvcc call: ``voting.cu`` (the voting
-kernels), ``graph_cond.cu`` (the conditional nodes of the captured
-frame, ops/hough.py `run_if`) and ``trace.cu`` (the tracer's device
-stamps and tallies, trace.py).  It has a plain C interface (no PyTorch
-headers), so nvcc builds it in seconds.  It is built at first use into
+One library, from four sources in one nvcc call: ``voting.cu`` (the voting
+kernels), ``gates.cu`` (a Hough round's gates, ops/gates.py),
+``graph_cond.cu`` (the conditional nodes of the captured frame, ops/hough.py
+`run_if`) and ``trace.cu`` (the tracer's device stamps and tallies,
+trace.py).  It has a plain C interface (no PyTorch headers), so nvcc builds
+it in seconds.  It is built at first use into
 ``build/torch_kernels/`` beside the package, keyed by a hash of the sources
 and the flags, so unchanged sources are built once per checkout.  Nothing
 here runs at import time.  One lock serialises the build and the load, so
@@ -26,6 +27,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCE = _CSRC / "voting.cu"
+_GATES = _CSRC / "gates.cu"
 _GRAPH_COND = _CSRC / "graph_cond.cu"
 _TRACE = _CSRC / "trace.cu"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
@@ -51,6 +53,11 @@ _SIGNATURES = {
     "pcs_vote_bins": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _P),
     # xs, removed, n, c1, c2, nb, half_dx, num_x, nxs, key, best, best_d, stream
     "pcs_vote_decrement": (_P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P),
+    # is64, xs, p2, active, n, cell, cell64, b0, c1row, c2row, dx, dv, half32,
+    # dx32, min_nb_denom, rs, nrs, shift, minvotes, min_pca, rs_max, nxs, keys,
+    # m2, nv, flags, out, stream
+    "pcs_round_gates": (_I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                        _P, _I, ctypes.c_double, ctypes.c_double, _I, _P, _P, _P, _P, _P, _P),
     # stream, flag (one byte on the card), body stream
     "pcs_if_begin": (_P, _P, _P),
     # body stream
@@ -102,7 +109,7 @@ def load_library(source: Path = _SOURCE) -> ctypes.CDLL:
     """Build (if needed) and load the library; raises on failure.  `source`
     may name another copy of ``voting.cu`` with the same C entries, such as
     an earlier version to time beside this one (built with this
-    ``graph_cond.cu`` and ``trace.cu``)."""
+    ``gates.cu``, ``graph_cond.cu`` and ``trace.cu``)."""
     with _lock:
         lib = _loaded.get(source)
         if lib is None:
@@ -111,7 +118,7 @@ def load_library(source: Path = _SOURCE) -> ctypes.CDLL:
 
 
 def _build_and_load(source: Path) -> ctypes.CDLL:
-    sources = (source, _GRAPH_COND, _TRACE)
+    sources = (source, _GATES, _GRAPH_COND, _TRACE)
     path = _library_path(sources)
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -5,9 +5,10 @@ exact (B, NX, NX) accumulator and subtracts each extracted line's inliers;
 "lazy" keeps only (best, key, ub) per direction, decrements each best cell by
 the removed points' votes (one kernel, `vote_decrement`) and re-examines the
 directions whose bound could reach the global max.  The voting itself goes
-through ops/voting.py: the CUDA kernels for CUDA tensors, the plain versions
-for CPU tensors (or for CUDA tensors, when a caller passes ``voting=PLAIN``
-to compare the two).
+through ops/voting.py, and each round's gates (winner's line, refinements,
+acceptance tests) through ops/gates.py: the CUDA kernels for CUDA tensors,
+the plain versions for CPU tensors (or for CUDA tensors, when a caller passes
+``voting=PLAIN`` to compare the two).
 
 The loop is the JAX package's: one function, `_round`, is the body of the
 JAX ``lax.while_loop``, masked by a device flag ``live`` (the loop's
@@ -65,24 +66,27 @@ import torch.distributed as dist
 
 from .. import trace
 from ..config import PipelineConfig
-from ..geometry import canonicalize_direction
 from ..sphere import hough_space
-from .eigh3 import eigvalsh3, principal_eigenvector3
+from . import gates as G
 from . import voting as V
+from .gates import _first_true, _row
 from .voting import _compact_removed
 
 
 class Voting(NamedTuple):
-    """The voting functions extract_lines calls (see ops/voting.py).  A
-    caller that names only the first two gets the decrement kernel."""
+    """The voting functions extract_lines calls (see ops/voting.py), and a
+    round's gates (ops/gates.py).  A caller that names only the first two
+    gets the decrement and gates kernels."""
 
     vote_state: object
     vote_histogram: object
     vote_decrement: object = V.vote_decrement
+    round_gates: object = G.round_gates
 
 
-KERNELS = Voting(V.vote_state, V.vote_histogram, V.vote_decrement)
-PLAIN = Voting(V.vote_state_plain, V.vote_histogram_plain, V.vote_decrement_plain)
+KERNELS = Voting(V.vote_state, V.vote_histogram, V.vote_decrement, G.round_gates)
+PLAIN = Voting(V.vote_state_plain, V.vote_histogram_plain, V.vote_decrement_plain,
+               G.round_gates_plain)
 
 _VOTE_TILE = 128       # direction tables are padded to a multiple of this
 _SUB_CHUNK = 512       # removed-point columns of the incremental update
@@ -203,43 +207,6 @@ def _masked_minmax(points, valid):
     return p_min, p_max
 
 
-def _line_distance2(pts, a, b_unit):
-    # geometry.point_line_distance's op sequence (elementwise-product dots)
-    d = pts - a
-    along = (d * b_unit[None, :]).sum(-1)
-    perp = d - along[:, None] * b_unit[None, :]
-    return (perp * perp).sum(-1)
-
-
-def _masked_scatter(c):
-    """c.T @ c of (N, 3) float32 rows, as an elementwise sum: no matrix
-    product, so no TF32 question on the card."""
-    return (c[:, :, None] * c[:, None, :]).sum(0)
-
-
-def _masked_lsq(pts, mask):
-    """Orthogonal LSQ over masked points: (largest scatter eigenvalue,
-    centroid, unit direction).  The eigensolve runs in float32."""
-    dt = pts.dtype
-    m = mask.to(dt)
-    cnt = torch.clamp_min(m.sum(), 1.0)
-    mean = (pts * m[:, None]).sum(0) / cnt
-    c = torch.where(mask[:, None], pts - mean, 0.0).to(torch.float32)
-    rc, bvec = principal_eigenvector3(_masked_scatter(c))
-    return rc.to(dt), mean, bvec.to(dt)
-
-
-def _masked_cov_eigs(pts, mask):
-    """Descending covariance eigenvalues over masked points (float32)."""
-    dt = pts.dtype
-    m = mask.to(dt)
-    cnt = torch.clamp_min(m.sum(), 1.0)
-    mean = (pts * m[:, None]).sum(0) / cnt
-    c = torch.where(mask[:, None], pts - mean, 0.0).to(torch.float32)
-    denom = torch.clamp_min(cnt.to(torch.float32) - 1.0, 1.0)
-    return eigvalsh3(_masked_scatter(c) / denom).to(dt)
-
-
 def _pad_dirs_to_tile(dirs, c1, c2):
     """Pad the direction table to a _VOTE_TILE multiple with copies of
     direction 0, which never win the smallest-index tie-break."""
@@ -255,15 +222,6 @@ def scatter_rows(dst, idx, rows):
     buf = torch.cat([dst, dst[:1]])
     buf.index_copy_(0, idx.to(torch.int64), rows)
     return buf[:-1]
-
-
-def _first_true(mask):
-    return torch.argmax(mask.to(torch.int8))
-
-
-def _row(t, i):
-    """t[i] for a 0-dim index tensor, without a host read."""
-    return t.index_select(0, i.reshape(1))[0]
 
 
 _BODY_DEPTH = 4            # nested run_if bodies a capture may hold
@@ -686,82 +644,15 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
         if shard is not None:
             cell_win, b0, c1row, c2row = shard.winner(
                 M, b_win + dir_offset, cell_win, b0, c1row, c2row)
-        xi = (cell_win // NX).to(torch.float32)
-        yi = (cell_win % NX).to(torch.float32)
-        xc = (xi + 0.5) * dx32 - half32
-        yc = (yi + 0.5) * dx32 - half32
-        a0 = (xc * c1row + yc * c2row).to(dt)
-
-        # refinement #1: the direction is renormalised first, as the oracle's
-        # points_close_to_line does, and the sqrt'd distance compared to dx
-        active = s.active
-        b0u = b0 / torch.sqrt((b0 * b0).sum())
-        m1 = active & (torch.sqrt(_line_distance2(Xs, a0, b0u)) <= dx)
-        ok0 = m1.any()
-        rc1, a1, b1 = _masked_lsq(Xs, m1)
-        ok1 = ok0 & (rc1 > 0.0)
-
-        # refinement #2 + vote gate
-        b1u = b1 / torch.sqrt((b1 * b1).sum())
-        m2 = active & (torch.sqrt(_line_distance2(Xs, a1, b1u)) <= dx)
-        nv = m2.sum().to(torch.int32)
-        ok2 = ok1 & (nv >= cfg.opt_minvotes)
-        rc2, a2, b2 = _masked_lsq(Xs, m2)
-        ok3 = ok2 & (rc2 > 0.0)
-
-        bc = canonicalize_direction(b2)               # D-SIGN
-        a_w = a2 + shift
-
-        # per-point t / radius / gaps
-        dvec = P2 - a_w
-        bb = torch.clamp_min((bc * bc).sum(), 1e-30)
-        t_all = (dvec * bc).sum(-1) / bb
-        proj = a_w[None, :] + t_all[:, None] * bc[None, :]
-        prad = torch.sqrt(torch.clamp_min(((proj - P2) ** 2).sum(-1), 0.0))
-        bx_zero = bc[0] == 0.0                        # find_t failure
-        t = (proj[:, 0] - a_w[0]) / torch.where(bx_zero, 1.0, bc[0])
-
-        # gap check over t-sorted order; the stable sort gives the same
-        # adjacent-gap maximum as the JAX package's rank-matrix form
-        tv = torch.where(m2, t, torch.inf)
-        pn_all = torch.sqrt(((a_w[None, :] + t[:, None] * bc[None, :]) ** 2).sum(-1))
-        order = torch.sort(tv, stable=True).indices
-        pn_s = pn_all[order]
-        pair_ok = (torch.arange(1, N, device=dev)) < nv
-        gaps = torch.where(pair_ok, torch.abs(pn_s[1:] - pn_s[:-1]), -torch.inf)
-        max_gap = torch.where(nv > 1, gaps.max(), 0.0) if N > 1 else \
-            torch.zeros((), dtype=dt, device=dev)
-
-        ifirst = _first_true(m2)
-        ilast = N - 1 - _first_true(m2.flip(0))
-        radius = torch.maximum(_row(prad, ifirst), _row(prad, ilast))
-
-        t_min = torch.where(m2, t, torch.inf).min()
-        t_max = torch.where(m2, t, -torch.inf).max()
-        t_min = torch.where(nv > 0, t_min, 0.0)
-        t_max = torch.where(nv > 0, t_max, 0.0)
-
-        # acceptance gates
-        diffs = torch.abs(radius - rs)
-        k = torch.argmin(diffs)                       # first strict min
-        closest = _row(rs, k)
-        min_diff = _row(diffs, k)
-        max_radius = torch.clamp_min(diffs[0], rs_max)   # reference quirk h:298-307
-        gate_r = (min_diff < dv) & (max_radius <= closest) & (max_gap < 2.0 * dv)
-
-        eig = _masked_cov_eigs(P2, m2)
-        pca_coeff = eig[0] / torch.clamp_min(eig.sum(), 1e-30)
-        # the oracle's form: endpoints first, then the difference
-        p1g = t_min * bc + a_w
-        p2g = t_max * bc + a_w
-        seg_len = torch.sqrt(((p2g - p1g) ** 2).sum())
-        min_nb = (2.0 * closest * seg_len / min_nb_denom).to(torch.int32)
-        accept = gate_r & (pca_coeff > cfg.min_pca_coeff) & (nv > min_nb)
+        g = voting.round_gates(Xs, P2, s.active, cell_win, b0, c1row, c2row, dx, dv,
+                               half32, dx32, min_nb_denom, rs, shift, cfg.opt_minvotes,
+                               cfg.min_pca_coeff, rs_max, NX)
         trace.stamp("round[{}].gates.end", rnd)
 
-        failx = s.live & ok3 & bx_zero
-        proceed = s.live & ok3 & ~bx_zero
-        write = proceed & accept & (s.nout < L)
+        m2, nv, ok3 = g.m2, g.nv, g.ok3
+        failx = s.live & ok3 & g.bx_zero
+        proceed = s.live & ok3 & ~g.bx_zero
+        write = proceed & g.accept & (s.nout < L)
         sel = (slot_iota == s.nout) & write
 
         def upd(arr, val):
@@ -770,17 +661,17 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
 
         segs = s.segs
         segs = SegmentBatch(
-            a=upd(segs.a, a_w), b=upd(segs.b, bc),
-            t_min=upd(segs.t_min, t_min), t_max=upd(segs.t_max, t_max),
-            radius=upd(segs.radius, closest),
+            a=upd(segs.a, g.a_w), b=upd(segs.b, g.bc),
+            t_min=upd(segs.t_min, g.t_min), t_max=upd(segs.t_max, g.t_max),
+            radius=upd(segs.radius, g.closest),
             points_size=upd(segs.points_size, nv),
-            pca_coeff=upd(segs.pca_coeff, pca_coeff),
-            pca_eigenvalues=upd(segs.pca_eigenvalues, eig),
+            pca_coeff=upd(segs.pca_coeff, g.pca_coeff),
+            pca_eigenvalues=upd(segs.pca_eigenvalues, g.eig),
             point_mask=upd(segs.point_mask, m2),
             valid=upd(segs.valid, True))
 
         counted = (s.live & ok3).to(torch.int32)   # nlines counts gate failures (h:259)
-        active_next = active & ~m2
+        active_next = s.active & ~m2
         # The JAX loop's cond for the next round: this round proceeded and is
         # not the last.  The update is skipped (branch 0) in a last round, as
         # nothing reads the voting state after it.
@@ -800,7 +691,7 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
             vstate = s.vstate
         return _LoopState(
             it=s.it + s.live.to(torch.int32),
-            active=torch.where(proceed, active_next, active),
+            active=torch.where(proceed, active_next, s.active),
             vstate=vstate,
             nlines=s.nlines + counted,
             nout=s.nout + write.to(torch.int32),

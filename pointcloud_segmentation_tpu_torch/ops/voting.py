@@ -7,7 +7,8 @@ the kernel or raises.  There is no fallback from one to the other.  Each
 wrapper counts its kernel launches in a plain integer attribute
 (``vote_state.launches``, ``vote_histogram.launches``,
 ``vote_decrement.launches``), so a run can show that it went through the
-kernels.
+kernels.  The gates kernel of ops/gates.py (``round_gates``) is counted here
+too, in `COUNTED`.
 
 A wrapper's counts, two figures apart:
   * ``launches``: launches issued, those recorded into a CUDA graph counted
@@ -38,6 +39,8 @@ kernel, and a float64 tensor on the card is refused, not converted.
 from __future__ import annotations
 
 import torch
+
+from .gates import round_gates
 
 _TILE = 128                # directions per tile of the plain versions
 
@@ -346,8 +349,9 @@ def vote_decrement(Xs, removed, c1, c2, half, dx, num_x, num_x_static, key, best
 vote_decrement.launches = vote_decrement.captured = 0
 vote_decrement.counts = {}
 
-# the wrappers whose launches are counted
-COUNTED = (vote_state, vote_histogram, vote_decrement)
+# the wrappers whose launches are counted: the voting kernels' and a Hough
+# round's gates kernel (ops/gates.py)
+COUNTED = (vote_state, vote_histogram, vote_decrement, round_gates)
 
 
 def vote_bins_kernel(Xs, c1, c2, half, dx, num_x):

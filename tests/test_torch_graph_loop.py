@@ -106,17 +106,20 @@ def assert_bit_equal(a, b):
 
 class Rounds:
     """Counts the rounds a loop runs: `_round` fits one direction per
-    round, through canonicalize_direction."""
+    round, through the gates' canonicalize_direction (ops/gates.py, the
+    plain gates a CPU tensor takes)."""
 
     def __init__(self, monkeypatch):
+        from pointcloud_segmentation_tpu_torch.ops import gates as TG
+
         self.n = 0
-        inner = TH.canonicalize_direction
+        inner = TG.canonicalize_direction
 
         def counted(b):
             self.n += 1
             return inner(b)
 
-        monkeypatch.setattr(TH, "canonicalize_direction", counted)
+        monkeypatch.setattr(TG, "canonicalize_direction", counted)
 
     def run(self, *args, **kw):
         self.n = 0

@@ -117,19 +117,22 @@ def test_on_a_cpu_frame_stamps_its_stages_in_order_and_the_engine_spans_nest():
 @pytest.mark.parametrize("opt_nlines", [0, 3])
 def test_live_rounds_are_the_rounds_the_eager_loop_runs(opt_nlines, monkeypatch):
     """The cond step's stamped rounds against an independent count of the
-    eager loop's: every round refines its line twice (`_line_distance2`)."""
+    eager loop's: every round refines its line twice (`_line_distance2` of
+    the plain gates, ops/gates.py, which a CPU tensor takes)."""
+    from pointcloud_segmentation_tpu_torch.ops import gates as G
+
     frames = small_frames(4)
     cfg = small_cfg(opt_nlines=opt_nlines)
     calls = []
-    real = H._line_distance2
-    monkeypatch.setattr(H, "_line_distance2", lambda *a: calls.append(1) or real(*a))
+    real = G._line_distance2
+    monkeypatch.setattr(G, "_line_distance2", lambda *a: calls.append(1) or real(*a))
     eager = SegmentationEngine(cfg, device="cpu", loop="eager")
     rounds = []
     for fr in frames:
         n = len(calls)
         run(eager, [fr])
         rounds.append((len(calls) - n) // 2)
-    monkeypatch.setattr(H, "_line_distance2", real)
+    monkeypatch.setattr(G, "_line_distance2", real)
     trace.enable()
     run(SegmentationEngine(cfg, device="cpu", loop="cond"), frames)
     out = trace.export()

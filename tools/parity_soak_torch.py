@@ -237,29 +237,39 @@ def knife_edge_trace(seed: int, mode: str = "base", f64: bool = False,
     """One seed on both backends, frame by frame.  For each backend: every
     frame's status and line count, and the b.x of every direction its Hough
     loop refined, in order (the value the reference aborts on when it is
-    exactly 0.0), and that direction whole (``b``), read by tapping the
-    backend's canonicalize_direction for the run: the torch backend runs its
-    eager loop (``loop="eager"``), whose rounds call the tap as they run and
-    end with the frame's last live round.  ``errors`` is `compare_worlds` of
-    the two world maps."""
-    from pointcloud_segmentation_tpu_torch.ops import hough
+    exactly 0.0), and that direction whole (``b``): the oracle's read by
+    tapping its canonicalize_direction for the run, the torch backend's from
+    each round's gates (ops/gates.py, the kernel on a card), which its eager
+    loop (``loop="eager"``) calls as the rounds run, ending with the frame's
+    last live round.  ``errors`` is `compare_worlds` of the two world maps."""
+    from pointcloud_segmentation_tpu_torch.ops.hough import KERNELS, Voting
     from pointcloud_segmentation_tpu_torch.oracle import _geometry
     from pointcloud_segmentation_tpu_torch.runtime import SegmentationEngine
 
     cfg, frames = random_case(seed, mode, f64)
     out = {}
-    for backend, mod in (("oracle", _geometry), ("torch", hough)):
-        orig, bx, bs = mod.canonicalize_direction, [], []
+    orig = _geometry.canonicalize_direction
+    for backend in ("oracle", "torch"):
+        bx, bs = [], []
 
-        def tap(b, *a, _orig=orig, _bx=bx, _bs=bs, **k):
-            b = _orig(b, *a, **k)
+        def note(b, _bx=bx, _bs=bs):
             _bx[-1].append(float(b[0]))
             _bs[-1].append([float(v) for v in b])
+
+        def tap(b, *a, **k):
+            b = orig(b, *a, **k)
+            note(b)
             return b
 
-        mod.canonicalize_direction = tap
+        def gates(*args):
+            g = KERNELS.round_gates(*args)
+            note(g.bc)
+            return g
+
+        kw = {"voting": Voting(*KERNELS[:3], gates)} if backend == "torch" else {}
+        _geometry.canonicalize_direction = tap if backend == "oracle" else orig
         try:
-            eng = SegmentationEngine(cfg, backend=backend, device=device, loop="eager")
+            eng = SegmentationEngine(cfg, backend=backend, device=device, loop="eager", **kw)
             recs = []
             for fr in frames:
                 bx.append([])
@@ -267,7 +277,7 @@ def knife_edge_trace(seed: int, mode: str = "base", f64: bool = False,
                 eng.push_pose(fr.t, fr.position, fr.quat_wxyz)
                 recs.append(eng.process_frame(fr.t, fr.points))
         finally:
-            mod.canonicalize_direction = orig
+            _geometry.canonicalize_direction = orig
         out[backend] = {"status": [r["status"] for r in recs],
                         "nblines": [r["nblines"] for r in recs],
                         "bx": bx, "b": bs, "world": eng.world_snapshot()}
