@@ -1,26 +1,29 @@
-"""Smoke run of the PyTorch port on one CUDA card: builds the CUDA sources
-(the voting kernels and the conditional nodes of the captured frame, in
-one nvcc call), holds each kernel against its plain PyTorch
-version at every shape the main path gives it (NX 79 and NX 261) and at
-edge cases, drives the replay main path, checks what comes out, and times
-the kernels beside their bounds.  The main path is the engine's default on
-the card: one CUDA graph a frame whose Hough rounds and update branches are
-conditional nodes (loop "cond"); it is held frame by frame against the
-eager engine on the g6, g4, radius-0.015, float64 g6 and mockup replays,
+"""Smoke run of the PyTorch port on one CUDA card: builds the CUDA sources (the
+voting kernels and the conditional nodes of the captured frame, in one nvcc
+call), holds each kernel against its plain PyTorch version at every shape
+the main path gives it (NX 79 and NX 261) and at edge cases, drives the
+replay main path, checks what comes out, and times the kernels beside their
+bounds (the benchmark's count, benchmark/roofline).  The main path is the
+engine's default on the card: one CUDA graph a frame whose Hough rounds and
+update branches are conditional nodes (loop "cond"); it is held frame by
+frame against the host-driven engine (loop "eager": the same frame issued
+from the host) on the g6, g4, radius-0.015, float64 g6 and mockup replays,
 through the batched, pipelined, checkpointed and streamed engine, and
 profiled (launches, host reads, conditional nodes, device ms of a frame and
-of a dead round, ms/frame of both loops in turns).  Then it drives the live node loop at the shipped config on the card: a lockstep
-stream through the worker, paced and unpaced streams of a recorded log, the
-TCP server, the CLI in subprocesses, and a checkpoint resume, each held to
-the synchronous replay or to its own accounting, and each counting its
-vote_state launches.  Last the parity stack, on the card with the hand
+of a dead round, ms/frame of the graph and the host-driven engine in turns).
+Then it drives the live node loop at the shipped config on the card: a
+lockstep stream through the worker, paced and unpaced streams of a recorded
+log, the TCP server, the CLI in subprocesses, and a checkpoint resume, each
+held to the synchronous replay or to its own accounting, and each counting
+its vote_state launches.  Last the parity stack, on the card with the hand
 kernels: the float64 mode against the numpy oracle on the host (g6 lazy on
 16 frames, whose oracle runs in a process of its own from the start of the
-script, through the eager and the cond engine, and g4 carry on the 31-frame
-replay; both kernels launched, float64 lazy equal to float64 carry), the
-kernels against their plain versions on the float32 inputs a float64 frame
-hands them, batched replay against synchronous, sequential fusion against
-vectorised, seeds of tools/parity_soak_torch.py, and the oracle backend.
+script, through the host-driven and the cond engine, and g4 carry on the
+31-frame replay; both kernels launched, float64 lazy equal to float64
+carry), the kernels against their plain versions on the float32 inputs a
+float64 frame hands them, batched replay against synchronous, sequential
+fusion against vectorised, seeds of tools/parity_soak_torch.py, and the
+oracle backend.
 Between the node loop and the parity stack, the sensor-data and display
 surfaces at the shipped config: the 31 frames written as ROS1 bags (none,
 bz2) and MCAP files (plain, one chunk, one zstd chunk where zstandard
@@ -82,8 +85,8 @@ whole run); --sensor-only does the same for the sensor-data and display
 phases, --shard-only for the sharded and deferred phases, and --native-only
 for the node loop's native-runtime phases, the endurance stream, the CLI and
 the soak, --structure-only for the structure flights and the g6 float32
-drift against the oracle, and --graph-only for the captured frame's loop
-(cond) against the eager one.  It prints the
+drift against the oracle, and --graph-only for the captured frame (cond)
+against the host-driven engine.  It prints the
 card's name and power limit, one line per check and time, then a JSON line
 of the kernels, the card line again, and last the JSON line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -112,14 +115,15 @@ import numpy as np
 import torch
 import torch.distributed
 
-# H100 SXM peaks (NVIDIA's data sheet): float32 outside the tensor cores, an
-# FMA counted as two operations; HBM3
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-# lane instructions a second: 128 lanes a clock on each of 132 SMs at
-# 1.98 GHz, half the float32 peak, since that counts an FMA as two
-PEAK_LANE_INSTRUCTIONS = PEAK_F32_FLOPS / 2
+# the voting kernels' bytes, operations and H100 SXM peaks, as the benchmark
+# counts them: one count for the kernel table and the ledger's rooflines
+from benchmark.roofline import histogram as roofline_histogram
+from benchmark.roofline import voting as roofline_voting
+
 REPO = Path(__file__).resolve().parent
+PEAK_BYTES_PER_S = roofline_voting.PEAK_BYTES_PER_S
+# float32 operations a second outside the tensor cores, an FMA counted as two
+PEAK_F32_FLOPS = 2 * roofline_voting.PEAK_LANE_OPS_PER_S
 # keys of a viz-stream record of the JAX engine (runtime/engine.py
 # _emit_viz_frame), without point clouds
 VIZ_KEYS = {"frame", "t", "nlines", "status", "world_count", "cylinders",
@@ -127,15 +131,6 @@ VIZ_KEYS = {"frame", "t", "nlines", "status", "world_count", "cylinders",
 CSV_HEADERS = {"segments.csv": "segment,a_x,a_y,a_z,b_x,b_y,b_z,t_min,t_max",
                "intersections.csv": "seg1,t1,seg2,t2",
                "processing_time.csv": "wall_time,processing_time,seg_vec_size,nblines"}
-# instructions one point needs in one direction with no product+sum
-# contraction (the bins must equal the plain float32 bins): per bin three
-# products, three sums, the quotient (a product and four FMAs), a floor, a
-# conversion and a two-sided clamp; then the cell index and one atomic vote
-VOTE_INSTRUCTIONS = 2 * (3 + 3 + 5 + 1 + 1 + 2) + 2
-# float32 operations of binning one (removed point, direction) pair on both
-# axes, the benchmark's count (benchmark/roofline/voting.py): the decrement's
-# least work, since a pair whose x bin rules the key out skips its y bin
-DECREMENT_OPS_PER_PAIR = 24
 # nodes of the captured g6 frame while the decrement was a chain of PyTorch
 # ops over a (20,608, 512) tensor (an H100, tracing off)
 CHAIN_GRAPH_NODES_G6 = 7_268
@@ -203,15 +198,15 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
 
 
 def bound(kind: str, n: int, n_active: int, rows: int, nxs: int) -> tuple:
-    """(bound ms, "bytes" or "operations") of one voting call: each input
-    read once (points, mask, plane bases, scalars) and each output written
-    once, against the instructions that bin and vote this call's active
-    points."""
-    in_bytes = n * 12 + n + rows * 24 + 12
-    out_bytes = rows * 12 if kind == "vote_state" else rows * nxs * nxs * 4
-    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
-    t_ops = VOTE_INSTRUCTIONS * n_active * rows / PEAK_LANE_INSTRUCTIONS * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    """(bound ms, "bytes" or "operations") of one voting call, the
+    benchmark's count (benchmark/roofline): each input read and each output
+    written once, against the float32 operations that bin this call's
+    active points."""
+    if kind == "vote_state":
+        seconds, by = roofline_voting.least_seconds(rows, n, n_active)
+    else:
+        seconds, by = roofline_histogram.least_seconds(rows, n, n_active, nxs)
+    return seconds * 1e3, by
 
 
 def launcher(lib, name, Xs, act, c1, c2, half, dx, nx, NX):
@@ -356,7 +351,10 @@ class Shapes:
                                          key, best))
         plain_ms = event_ms(lambda: V.vote_decrement_plain(Xs, removed, c1, c2, half, dx,
                                                            nx, NX, key, best), 3)
-        b_ms = DECREMENT_OPS_PER_PAIR * n_rem * c1.shape[0] / PEAK_LANE_INSTRUCTIONS * 1e3
+        # the decrement's least work: a pair whose x bin rules the key out
+        # skips its y bin, so it is the benchmark's binning of both axes
+        b_ms = roofline_voting.launch_ops(c1.shape[0], n_rem) \
+            / roofline_voting.PEAK_LANE_OPS_PER_S * 1e3
         rec = {"name": "vote_decrement", "shape": label, "rows": c1.shape[0],
                "n": Xs.shape[0], "active": n_rem, "nx": NX, "ms": ms, "plain_ms": plain_ms,
                "library_ms": None, "bound_ms": b_ms, "bound_by": "operations",
@@ -527,7 +525,7 @@ def kernel_checks(dev, frame, card, earlier=None):
 
 
 def record_gates(cfg, frames, dev) -> list:
-    """The arguments of every round's gates over the eager kernel replay of
+    """The arguments of every round's gates over the host-driven kernel replay of
     `frames` at `cfg` (the main path's rounds), each tensor copied."""
     from pointcloud_segmentation_tpu_torch import SegmentationEngine
     from pointcloud_segmentation_tpu_torch.ops import gates as G
@@ -777,7 +775,7 @@ def launches_of(label, voting, name="vote_state") -> int:
 
 
 def counted_run(label, cfg, frames, dev, name, per_frame=False):
-    """One path of the main path on the eager engine, its kernel's launch
+    """One path of the main path on the host-driven engine, its kernel's launch
     count set to 0 just before and read just after; returns (run,
     launches).  The run keeps its calls by (rows, points) under "shapes"."""
     from pointcloud_segmentation_tpu_torch.ops import voting as V
@@ -1140,20 +1138,17 @@ def checkpoint_phase(cfg, frames, ref, tmp):
 
 # ------------------------------------------------ the captured frame's loops
 
-LOOPS_TIMED = ("cond", "eager")
+# the engine's two loops, each with its label in the printouts: one CUDA
+# graph a frame, and the same frame issued from the host
+LOOP_LABEL = {"cond": "graph", "eager": "host-driven"}
+LOOPS_TIMED = tuple(LOOP_LABEL)
 LOOP_REPEATS = 5        # interleaved replays of each loop for ms/frame
 LOOP_TIMED = slice(8, 24)    # the frames of each timed replay, in mid-flight
-# the masked graph loop (every round and branch issued, launches gated), which
-# the cond loop replaced: device ms of a NaN frame and of one dead round
-# (chip_smoke.py's loop phase at its last run with that loop; NVIDIA H100 80GB
-# HBM3, 700 W), printed beside the cond loop's for comparison
-MASKED_GRAPH_NAN_MS = {"g6 lazy": 19.736, "g4 carry": 10.292}
-MASKED_GRAPH_DEAD_ROUND_MS = {"g6 lazy": 1.8504, "g4 carry": 0.9061}
 
 
 def lockstep_loops(label, cfg, frames, dev, keep=False):
-    """The cond engine (the card's default) and the eager engine side by
-    side, frame by frame: each frame's record (world count, nlines, status)
+    """The cond engine (the card's default) and the host-driven engine side
+    by side, frame by frame: each frame's record (world count, nlines, status)
     and the world state after it bit-equal.  With `keep`, returns the cond
     engine's per-frame (record, snapshot)."""
     from pointcloud_segmentation_tpu_torch import SegmentationEngine
@@ -1179,7 +1174,7 @@ def lockstep_loops(label, cfg, frames, dev, keep=False):
     for loop in bad:
         step = engs[loop]._step
         check(not bad[loop] and step.replays == len(frames) and len(step.captures) == 1,
-              f"{label}: {loop} engine == eager engine on every frame ({len(frames)} frames: "
+              f"{label}: {loop} engine == host-driven engine on every frame ({len(frames)} frames: "
               f"records and world state bit for bit; frames that differ {bad[loop]}), one "
               f"capture, {step.replays} replays")
     return kept
@@ -1197,7 +1192,7 @@ def main_path(cfg6, cfg4, frames, dev, k6, k4, card):
     one CUDA graph a frame whose Hough rounds and branches are conditional
     nodes, over the g6 lazy and g4 carry replays, every count set to 0 just
     before each and read just after.  Each frame's record and world state
-    is held bit for bit against the eager engine's (k6, k4: counted runs
+    is held bit for bit against the host-driven engine's (k6, k4: counted runs
     with per-frame states).  Returns ({label: {loop: run}}, {kernel:
     (captured, ran)} of the cond replays)."""
     from pointcloud_segmentation_tpu_torch.ops import voting as V
@@ -1229,7 +1224,7 @@ def main_path(cfg6, cfg4, frames, dev, k6, k4, card):
             n_inc, first = eager["decrement_launches"], eager["decrements"][0]
             check(0 < dec_ran == n_inc + first < dec_captured,
                   f"{label} replay through the cond step: vote_decrement ran in {dec_ran} of "
-                  f"the {dec_captured} launches its graphs hold: the eager replay's {n_inc} "
+                  f"the {dec_captured} launches its graphs hold: the host-driven replay's {n_inc} "
                   f"increment rounds and frame 0's {first} again in the capture's warm-up")
         # one gates launch a live round, each of which ran
         gates_captured, gates_ran = loop_counts(V.round_gates)
@@ -1237,14 +1232,14 @@ def main_path(cfg6, cfg4, frames, dev, k6, k4, card):
         n_rounds, first = eager["gates_launches"], eager["gates"][0]
         check(0 < gates_ran == n_rounds + first < gates_captured,
               f"{label} replay through the cond step: round_gates ran in {gates_ran} of the "
-              f"{gates_captured} launches its graphs hold: the eager replay's {n_rounds} "
+              f"{gates_captured} launches its graphs hold: the host-driven replay's {n_rounds} "
               f"rounds and frame 0's {first} again in the capture's warm-up")
         bad = [k for k, (r, e, a, b) in enumerate(zip(run["records"], eager["records"],
                                                        run["states"], eager["states"]))
                if (r["seg_vec_size"], r["nblines"]) != (e["seg_vec_size"], e["nblines"])
                or not same_state(a, b)]
         check(len(run["records"]) == len(eager["records"]) == len(frames) and not bad,
-              f"cond {label}: cond engine == eager engine on every frame ({len(frames)} "
+              f"cond {label}: cond engine == host-driven engine on every frame ({len(frames)} "
               f"frames: records and world state bit for bit; frames that differ {bad})")
         cap = step.captures[0]
         print(f"time  cond {label}: capture {cap['seconds']:.3f} s (warm-up frame, thrown-"
@@ -1291,9 +1286,9 @@ def profile_frame(eng, fr) -> dict:
 
 def loop_phase(cfg6, cfg4, frames, dev, card, tmp, runs, k6s):
     """The cond step (pipeline.make_process_frame_packed, the engine's
-    default on the card) against the eager engine, beyond the main path's g6 and g4 replays (`runs`, from
-    main_path): bit for bit on the radius-0.015 frames (against `k6s`,
-    the eager replay of them), the float64 g6 parity frames and the mockup
+    default on the card) against the host-driven engine, beyond the main
+    path's g6 and g4 replays (`runs`, from main_path): bit for bit on the
+    radius-0.015 frames (against `k6s`, the host-driven replay of them), the float64 g6 parity frames and the mockup
     flight at g4 (held to its record); the batched and pipelined replays, a
     checkpoint resume and a lockstep and an unpaced stream through the cond
     engine; the launches, host reads and device time of one frame each way
@@ -1316,7 +1311,7 @@ def loop_phase(cfg6, cfg4, frames, dev, card, tmp, runs, k6s):
           and [(r["nblines"], r["status"]) for r in run["records"]]
           == [(r["nblines"], r["status"]) for r in k6s["records"]]
           and all(same_state(a, b) for a, b in zip(run["states"], k6s["states"])),
-          "cond g6 radius 0.015, frames 10-14: cond engine == eager engine on every frame "
+          "cond g6 radius 0.015, frames 10-14: cond engine == host-driven engine on every frame "
           "(records and world state bit for bit)")
     part = frames[G6_PARITY_FRAMES]
     f64_cond = lockstep_loops(f"float64 g6, frames {G6_PARITY_FRAMES.start}-"
@@ -1325,7 +1320,7 @@ def loop_phase(cfg6, cfg4, frames, dev, card, tmp, runs, k6s):
                               keep=True)
 
     # the mockup flight at g4 on both loops, the cond flight against the
-    # eager one and held to its record
+    # host-driven one and held to its record
     st = load_structure()
     recs = structure_records(st)
     scene, mframes = st.flight_frames("mockup")
@@ -1337,7 +1332,7 @@ def loop_phase(cfg6, cfg4, frames, dev, card, tmp, runs, k6s):
           and cmp["drift"]["max"] == 0.0
           and flown["cond"]["endpoints_by_frame"] == flown["eager"]["endpoints_by_frame"],
           f"cond mockup g4: per-frame integers and every frame's world endpoints equal "
-          f"the eager flight's ({len(mframes)} frames)")
+          f"the host-driven flight's ({len(mframes)} frames)")
     rec = recs[("mockup", 4)]
     held_to_record("cond mockup g4", flown["cond"], rec)
     # against the record's oracle side: the same segment beyond the
@@ -1353,7 +1348,7 @@ def loop_phase(cfg6, cfg4, frames, dev, card, tmp, runs, k6s):
                   f"card_vs_oracle: endpoints within {st.ENDPOINT_TOL}", cmp["beyond"])
 
     # the batched and pipelined replays, a checkpoint resume and the streams
-    # through the cond engine, each against the eager g6 replay
+    # through the cond engine, each against the host-driven g6 replay
     ref = runs["g6 lazy"]["eager"]
     want = ref["state"]
     for kw in ({"batch": 4}, {"pipelined": True}):
@@ -1364,7 +1359,7 @@ def loop_phase(cfg6, cfg4, frames, dev, card, tmp, runs, k6s):
               == [(r["seg_vec_size"], r["nblines"]) for r in ref["records"]]
               and same_state(world_state_to_numpy(eng.state), want),
               f"cond run_replay({', '.join(f'{k}={v}' for k, v in kw.items())}): "
-              f"{eng._step.replays} replays, records and world state equal the eager "
+              f"{eng._step.replays} replays, records and world state equal the host-driven "
               f"replay's")
     ckpt = os.path.join(tmp, "cond_state.npz")
     first = SegmentationEngine(cfg6, dev)
@@ -1377,7 +1372,7 @@ def loop_phase(cfg6, cfg4, frames, dev, card, tmp, runs, k6s):
     check(same_state(world_state_to_numpy(resumed.state), want)
           and resumed._step.state is resumed.state and resumed.loop == "cond",
           "cond checkpoint: resumed after frame 15 into a running cond engine, the world "
-          "state bit-identical to the eager g6 replay")
+          "state bit-identical to the host-driven g6 replay")
     log = os.path.join(tmp, "cond_replay.pcsl")
     save_frames(log, frames)
     eng = SegmentationEngine(cfg6, dev)
@@ -1395,7 +1390,7 @@ def loop_phase(cfg6, cfg4, frames, dev, card, tmp, runs, k6s):
           == [(r["seg_vec_size"], r["nblines"]) for r in ref["records"]]
           and same_state(world_state_to_numpy(eng.state), want),
           f"cond lockstep stream (deferred read-back): {eng.frames_processed} frames, "
-          f"records and world state equal the eager replay's")
+          f"records and world state equal the host-driven replay's")
     out = eng.run_streaming_from_log(log, rate_hz=0.0)
     check(out["drained"] and out["failed"] == 0 and out["fed"] == out["processed"]
           + out["dropped"] + out["skipped"],
@@ -1417,7 +1412,7 @@ def loop_phase(cfg6, cfg4, frames, dev, card, tmp, runs, k6s):
                 nodes = ("" if loop == "eager" else
                          f", {engs[loop]._step.captures[0]['cond_nodes']} conditional nodes "
                          f"in the graph")
-                print(f"time  {loop} {label}, {what} under the profiler: "
+                print(f"time  {LOOP_LABEL[loop]} {label}, {what} under the profiler: "
                       f"{p['graph_launches']} cudaGraphLaunch, {p['kernel_launches']} "
                       f"cudaLaunchKernel, {p['host_reads']} host reads{nodes}, device "
                       f"{p['device_ms']:.3f} ms, wall {p['wall_ms']:.3f} ms [{card}]",
@@ -1431,23 +1426,20 @@ def loop_phase(cfg6, cfg4, frames, dev, card, tmp, runs, k6s):
               f"cond {label}: one frame is 1 cudaGraphLaunch, {gp['kernel_launches']} "
               f"cudaLaunchKernel (<= 20) and {gp['host_reads']} host read")
         # a dead round against a live one: all the NaN frame's rounds beyond
-        # the eager NaN frame's time (which runs none), against frame 10's
+        # the host-driven NaN frame's time (which runs none), against frame 10's
         # time beyond the NaN frame's over the most rounds it can run
         R = round_count(engs["cond"].cfg)
         nan_ms = prof[("cond", "a NaN frame")]["device_ms"]
         dead = nan_ms - prof[("eager", "a NaN frame")]["device_ms"]
         live = (gp["device_ms"] - nan_ms) / R
         print(f"time  cond {label}: {R} dead rounds of a NaN frame take {dead:.3f} ms of "
-              f"device time beyond the eager NaN frame's, {dead / R:.4f} ms a round; a live "
-              f"round of frame 10 at least {live:.3f} ms (the masked graph loop's NaN frame "
-              f"took {MASKED_GRAPH_NAN_MS[label]} ms, its dead round "
-              f"{MASKED_GRAPH_DEAD_ROUND_MS[label]} ms, on an H100 at 700 W) [{card}]",
-              flush=True)
+              f"device time beyond the host-driven NaN frame's, {dead / R:.4f} ms a round; "
+              f"a live round of frame 10 at least {live:.3f} ms [{card}]", flush=True)
         check(dead < live,
               f"{label}: the cond graph's {R} dead rounds together cost less than one live "
               f"round ({dead:.3f} against {live:.3f} ms)")
 
-    # ms/frame in turns: cond, eager, eager, cond, ... on fresh maps
+    # ms/frame in turns: graph, host-driven, host-driven, graph, ... on fresh maps
     timed = frames[LOOP_TIMED]
     blank = os.path.join(tmp, "loops_blank.npz")
     for label, engs in engines.items():
@@ -1462,15 +1454,17 @@ def loop_phase(cfg6, cfg4, frames, dev, card, tmp, runs, k6s):
             recs = eng.run_replay(timed)
             torch.cuda.synchronize()
             if len(recs) != len(timed):
-                fail(f"{loop} {label}: {len(recs)} of {len(timed)} timed frames processed")
+                fail(f"{LOOP_LABEL[loop]} {label}: {len(recs)} of {len(timed)} timed frames "
+                     f"processed")
             wall = (time.perf_counter() - t0) * 1e3 / len(timed)
             times[loop].append((statistics.median(r["processing_time"] for r in recs) / 1e3,
                                 wall))
         for loop, vals in times.items():
             med = [m for m, _ in vals]
             walls = [w for _, w in vals]
-            print(f"time  {loop} {label}, frames {LOOP_TIMED.start}-{LOOP_TIMED.stop - 1} x "
-                  f"{len(vals)} replays in turns (cond, eager, eager, cond): "
+            print(f"time  {LOOP_LABEL[loop]} engine {label}, frames {LOOP_TIMED.start}-"
+                  f"{LOOP_TIMED.stop - 1} x {len(vals)} replays in turns (graph, host-driven, "
+                  f"host-driven, graph): "
                   f"median ms/frame {statistics.median(med):.3f} "
                   f"(spread {min(med):.3f}-{max(med):.3f}), wall ms/frame "
                   f"{statistics.median(walls):.3f} (spread {min(walls):.3f}-{max(walls):.3f}) "
@@ -1940,7 +1934,7 @@ def held_to_oracle(label, got, want: OracleRun) -> float:
 
 
 def f64_parity(label, cfg, frames, kernel, card, oracle=None):
-    """The float64 mode on the card (the eager engine, its voting counted)
+    """The float64 mode on the card (the host-driven engine, its voting counted)
     against the oracle backend on the host, frame by frame (held_to_oracle).
     `oracle`: the oracle's run of these frames (an OracleRun, from a process
     of its own), or None to run it here.  Returns (torch engine, the
@@ -2948,8 +2942,8 @@ def main() -> None:
                     help="the kernel checks, the parity stack's f32 drift against the "
                          "oracle and the structure flights only; prints no result lines")
     ap.add_argument("--graph-only", action="store_true",
-                    help="the kernel checks and the captured frame's loop (cond) "
-                         "against the eager one only; prints no result lines")
+                    help="the kernel checks and the captured frame (cond) against "
+                         "the host-driven engine only; prints no result lines")
     ap.add_argument("--ranks-only", action="store_true",
                     help="as --shard-only without the deferred phases: on a host "
                          "with 2 or 4 cards the ranks' collectives run over NCCL")
@@ -3112,7 +3106,7 @@ def whole_run(cfg6, cfg4, frames, dev, card, earlier, oracle6):
 
     # the main path as a user drives it: the engine's default, one CUDA graph
     # a frame with its rounds and branches as conditional nodes (the counted
-    # runs above are the eager engine's)
+    # runs above are the host-driven engine's)
     runs, launches = main_path(cfg6, cfg4, frames, dev, k6, k4, card)
 
     def ms_per_frame(run):
@@ -3121,7 +3115,8 @@ def whole_run(cfg6, cfg4, frames, dev, card, earlier, oracle6):
     for label, pr in (("g6 lazy", p6), ("g4 carry", p4)):
         r = runs[label]
         print(f"time  replay {label}, {len(frames)} frames, median ms/frame: kernels "
-              f"(eager) {ms_per_frame(r['eager']):.3f}, cond step {ms_per_frame(r['cond']):.3f}, "
+              f"(host-driven) {ms_per_frame(r['eager']):.3f}, cond step "
+              f"{ms_per_frame(r['cond']):.3f}, "
               f"plain {ms_per_frame(pr):.3f} [{card}]", flush=True)
 
     # the live node loop at the shipped config, on the default device

@@ -331,14 +331,15 @@ def cmd_inspect(args) -> int:
     two ways: issued (a graph's counted once a replay, those inside
     conditional nodes included) and run on the card (each of which voted).
     The engine's default loop runs (one graph a frame on a card, its rounds
-    and branches conditional nodes); ``--loop eager`` profiles the eager
-    frame instead.  On the CPU the card's fields are left out.
+    and branches conditional nodes); ``--loop eager`` profiles the same
+    frame issued from the host instead.  On the CPU the card's fields are
+    left out.
 
     The tracer (trace.py) is on from before the warm-up frame, so the
     captured graph holds its stamps: beside the profiler's figures the
     frame's ms by stage (``device_stage_ms`` on a card, the stamps' own
     clock, which the profiler slows; ``host_stage_ms`` on the CPU) and its
-    live Hough rounds.  The eager loop stamps no stage."""
+    live Hough rounds.  The host-driven frame stamps no stage."""
     import contextlib
     import time
 
@@ -603,8 +604,8 @@ def main(argv=None) -> int:
     pi.add_argument("--seed", type=int, default=0)
     pi.add_argument("--loop", choices=("cond", "eager"), default=None,
                     help="the frame's loop (default: the engine's, one CUDA "
-                         "graph a frame with conditional nodes on a card, eager "
-                         "on the CPU)")
+                         "graph a frame with conditional nodes on a card, the "
+                         "frame from the host on the CPU)")
     pi.set_defaults(fn=cmd_inspect)
 
     pt = sub.add_parser("timing", help="analyze a processing_time.csv")

@@ -12,30 +12,21 @@ the plain versions for CPU tensors (or for CUDA tensors, when a caller passes
 
 The loop is the JAX package's: one function, `_round`, is the body of the
 JAX ``lax.while_loop``, masked by a device flag ``live`` (the loop's
-condition), so a round that is not live changes nothing.  Two loops run
-the rounds, chosen by the caller:
-  * ``loop="cond"``: `round_count(cfg)` rounds, each inside `run_if` on its
-    ``live`` flag, and each ``lax.switch`` branch of the update (keep /
-    increment or subtract / rebuild, and the lazy re-exam's tier) inside a
-    nested `run_if` on its own flag, so only the rounds and branches the
-    JAX program runs issue their ops.  While a CUDA graph is captured
-    (pipeline.make_process_frame) each `run_if` is a conditional node, the
-    device deciding at replay; elsewhere, the CPU included, it reads its
-    flag on the host, which is the node's meaning, so the CPU tests run the
-    bodies the card captures.  The loop state lives in tensors made before
-    the first node, and each body writes its results into them; the carry
-    subtract compacts the removed points to a fixed `_SUB_CHUNK` columns
-    with a live-column mask, since a shape is fixed at capture (the lazy
-    decrement reads the removed mask itself).
-  * ``loop="eager"``: the same rounds until one ends the loop.  A round
-    reads its branch and removed count on the host (and, in a lazy
-    incremental round, its suspect count) and issues only that branch, the
-    carry compaction sized to the removed points: the dead columns of the
-    cond loop's compaction count nothing, so the two loops give the same
-    bits.
-    The plain voting functions (whose bincount reads the host) and a shard
-    (whose collectives are not captured) take this one; asking for "cond"
-    with either raises.
+condition), so a round that is not live changes nothing.  `round_count(cfg)`
+rounds are issued, each inside `run_if` on its ``live`` flag, and each
+``lax.switch`` branch of the update (keep / increment or subtract / rebuild,
+and the lazy re-exam's tier) inside a nested `run_if` on its own flag, so
+only the rounds and branches the JAX program runs issue their ops.  While a
+CUDA graph is captured (pipeline.make_process_frame) each `run_if` is a
+conditional node, the device deciding at replay; anywhere else (the CPU, or
+the card outside a capture: the host-driven engine, the plain voting
+functions, whose bincount reads the host, and a shard, whose collectives
+are not captured) it reads its flag on the host, which is the node's
+meaning.  The loop state lives in tensors made before the first node, and
+each body writes its results into them; the carry subtract compacts the
+removed points to a fixed `_SUB_CHUNK` columns with a live-column mask,
+since a shape is fixed at capture (the lazy decrement reads the removed
+mask itself).
 
 With an `AxisGroup` over the direction axis (the counterpart of the JAX
 ``dir_axis``) the direction table is one rank's contiguous slice of the
@@ -399,9 +390,6 @@ def _loop_tensors(s: _LoopState) -> list:
     return [s.it, s.active, s.nlines, s.nout, s.fail, *s.segs, s.live]
 
 
-LOOPS = ("eager", "cond")
-
-
 def iteration_bound(cfg: PipelineConfig) -> int:
     """The JAX loop's `it_bound`: with opt_nlines > 0 every round either adds
     one to nlines or ends the loop, so opt_nlines + 1 is itself a bound and
@@ -411,7 +399,7 @@ def iteration_bound(cfg: PipelineConfig) -> int:
 
 
 def round_count(cfg: PipelineConfig) -> int:
-    """The rounds the cond loop unrolls: every round that lets the next
+    """The rounds the loop issues: every round that lets the next
     one run has proceeded (ok3) and so added one to nlines, and a round runs
     only while nlines < opt_nlines, so at most opt_nlines rounds run when
     opt_nlines > 0 (10 at the shipped config); else the iteration bound.
@@ -420,17 +408,10 @@ def round_count(cfg: PipelineConfig) -> int:
     return min(it_bound, cfg.opt_nlines) if cfg.opt_nlines > 0 else it_bound
 
 
-def _is_plain(voting: Voting) -> bool:
-    return (voting.vote_state is V.vote_state_plain
-            or voting.vote_histogram is V.vote_histogram_plain
-            or voting.vote_decrement is V.vote_decrement_plain)
-
-
 def extract_lines(points: torch.Tensor, valid: torch.Tensor,
                   cfg: PipelineConfig, dir_tables: tuple | None = None,
                   voting: Voting = KERNELS,
-                  shard: AxisGroup | None = None,
-                  loop: str = "eager") -> HoughResult:
+                  shard: AxisGroup | None = None) -> HoughResult:
     """Run the iterative Hough extraction on one pre-filtered cloud.
 
     Args:
@@ -447,21 +428,7 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
         the table (every rank's of one length, as parallel/sharding.py cuts it),
         `points` and `valid` are the same on every rank, and every rank of
         the shard's group makes this call together.
-      loop: what runs the rounds (module docstring): "eager" reads the
-        host once a round (twice in a lazy incremental round) and issues
-        only the branch it read; "cond" puts each round and branch in a
-        `run_if` node, the form pipeline.make_process_frame captures; it
-        raises with the plain voting functions or a shard.
     """
-    if loop not in LOOPS:
-        raise ValueError(f"loop must be one of {LOOPS}, got {loop!r}")
-    if loop != "eager" and _is_plain(voting):
-        raise ValueError(f"loop={loop!r} cannot take the plain voting functions: "
-                         "torch.bincount reads the host to size its output, "
-                         "which a CUDA graph cannot capture; use loop='eager'")
-    if loop != "eager" and shard is not None:
-        raise ValueError(f"loop={loop!r} cannot take a shard: its collectives "
-                         "are not captured; use loop='eager'")
     dev = points.device
     N = points.shape[0]
     L = cfg.max_lines
@@ -545,7 +512,7 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
                 scatter_rows(ub, idx, us))
 
     def decrement(vs, m2):
-        """The lazy incremental update's first step, in every loop: each
+        """The lazy incremental update's first step: each
         direction's best count less the votes the removed points of m2 cast
         in its best cell (one kernel, reading the mask itself), and the
         directions whose bound could still reach the new maximum.  Returns
@@ -558,7 +525,7 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
         return (best_d, key, ub), ub >= M_lb     # other cells could win
 
     def store(dst, src):
-        """A body's results into the loop's tensors (loop="cond")."""
+        """A body's results into the loop's tensors."""
         for d, x in zip(dst, src):
             d.copy_(x)
 
@@ -608,37 +575,14 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
         run_if(inc, subtract)
         run_if(rebuild, rebuild_state)
 
-    def vstate_update_eager(vs, branch: int, m2, n_rem: int, active_next):
-        """`vstate_update`'s branch 1 or 2 alone, for the eager loop, which
-        has read the branch and n_rem on the host: the carry subtract's
-        removed points compacted to n_rem columns, the lazy tier picked by a
-        host read of the suspect count."""
-        trace.tally(TALLIES[branch - 1])
-        if branch == 2:
-            return vstate_init(active_next)
-        if lazy:
-            dec, suspect = decrement(vs, m2)
-            n_sus = int(suspect.sum())           # host read: picks the tier
-            for cap in (s_tier, s_cap):
-                if n_sus <= cap:
-                    return exam(dec, suspect, cap, active_next)
-            return vstate_init(active_next)
-        votes, _ = vs
-        Xr, col_live = _compact_removed(Xv, m2, n_rem, n_rem)
-        vn = votes - voting.vote_histogram(Xr.contiguous(), col_live, c1, c2, half32, dx32,
-                                           num_x, NX)
-        return vn, vn.amax(dim=(1, 2))
-
     slot_iota = torch.arange(L, device=dev)
     P2 = Xs + shift                                   # inliers in input frame
 
-    def _round(s: _LoopState, loop: str, rnd: int):
+    def _round(s: _LoopState, rnd: int):
         """Round `rnd` of the JAX loop's body, masked by s.live: a round that
-        is not live changes nothing.  Returns (the next state, its branch):
-        the branch is a device tensor, or in the eager loop the host int the
-        round read to size its update (0: the loop ends, and the update is
-        skipped).  In the cond loop the update writes the voting state
-        `s.vstate` in place, and the next state holds those same tensors."""
+        is not live changes nothing.  Returns the next state; the update
+        writes the voting state `s.vstate` in place, and the next state
+        holds those same tensors."""
         M, b_win, cell_win = vstate_winner(s.vstate)
         b0, c1row, c2row = _row(dirs, b_win), _row(c1, b_win), _row(c2, b_win)
         if shard is not None:
@@ -681,23 +625,16 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
         live_next = proceed & ~ending
         branch = torch.where(live_next, torch.where(nv <= sub_chunk, 1, 2), 0)
         trace.stamp("round[{}].vote.begin", rnd)
-        if loop == "eager":
-            # host read, once a round: the branch and the removed count
-            branch, n_rem = torch.stack([branch, nv]).tolist()
-            vstate = (s.vstate if branch == 0 else
-                      vstate_update_eager(s.vstate, branch, m2, n_rem, active_next))
-        else:
-            vstate_update(s.vstate, branch, m2, nv, active_next)
-            vstate = s.vstate
+        vstate_update(s.vstate, branch, m2, nv, active_next)
         return _LoopState(
             it=s.it + s.live.to(torch.int32),
             active=torch.where(proceed, active_next, s.active),
-            vstate=vstate,
+            vstate=s.vstate,
             nlines=s.nlines + counted,
             nout=s.nout + write.to(torch.int32),
             fail=s.fail | failx,
             segs=segs,
-            live=live_next), branch
+            live=live_next)
 
     active0 = valid & ~precheck_fail
     live0 = active0.sum() > 1          # the loop's condition at round 0
@@ -708,42 +645,28 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
                           nout=zero, fail=torch.zeros((), dtype=torch.bool, device=dev),
                           segs=empty_segments(L, N, dt, dev), live=live0)
 
-    if loop == "cond":
-        # the loop's tensors, made before the first node; each node's body
-        # writes into them
-        if lazy:
-            vs = tuple(torch.zeros(B, dtype=torch.int32, device=dev) for _ in range(3))
-        else:
-            vs = (torch.zeros((B, NX, NX), dtype=torch.int32, device=dev),
-                  torch.zeros(B, dtype=torch.int32, device=dev))
-        s = start(vs)
-        s = s._replace(**{f: getattr(s, f).clone()          # one tensor each
-                          for f in ("it", "active", "nlines", "nout", "live")})
-        run_if(live0, lambda: store(vs, vstate_init(active0)))
-        trace.stamp("hough.init.end")
-
-        def one_round():
-            # run_if runs its body at once: `rnd` is the loop's round
-            trace.stamp("round[{}].begin", rnd)
-            nxt, _ = _round(s, loop, rnd)
-            store(_loop_tensors(s), _loop_tensors(nxt))
-            trace.stamp("round[{}].end", rnd)
-
-        for rnd in range(round_count(cfg)):
-            run_if(s.live, one_round)
+    # the loop's tensors, made before the first node; each node's body
+    # writes into them
+    if lazy:
+        vs = tuple(torch.zeros(B, dtype=torch.int32, device=dev) for _ in range(3))
     else:
-        s = start(None)
-        branch = 0
-        if bool(live0):                # host read: round 0's condition
-            s = s._replace(vstate=vstate_init(active0))
-            branch = 1
-        trace.stamp("hough.init.end")
-        rnd = 0
-        while branch != 0:
-            trace.stamp("round[{}].begin", rnd)
-            s, branch = _round(s, loop, rnd)
-            trace.stamp("round[{}].end", rnd)
-            rnd += 1
+        vs = (torch.zeros((B, NX, NX), dtype=torch.int32, device=dev),
+              torch.zeros(B, dtype=torch.int32, device=dev))
+    s = start(vs)
+    s = s._replace(**{f: getattr(s, f).clone()          # one tensor each
+                      for f in ("it", "active", "nlines", "nout", "live")})
+    run_if(live0, lambda: store(vs, vstate_init(active0)))
+    trace.stamp("hough.init.end")
+
+    def one_round():
+        # run_if runs its body at once: `rnd` is the loop's round
+        trace.stamp("round[{}].begin", rnd)
+        nxt = _round(s, rnd)
+        store(_loop_tensors(s), _loop_tensors(nxt))
+        trace.stamp("round[{}].end", rnd)
+
+    for rnd in range(round_count(cfg)):
+        run_if(s.live, one_round)
 
     nlines = torch.where(s.fail, 0, s.nlines).to(torch.int32)
     status = torch.where(degenerate, 1,

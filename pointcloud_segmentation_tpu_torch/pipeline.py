@@ -2,14 +2,14 @@
 
 Twin of the JAX package's pipeline.py: filter -> Hough -> drone-to-world
 transform -> floor cutoff -> world-map fusion + intersections.
-`process_frame` runs eagerly, its only host reads the Hough loop's (once a
-round with ``loop="eager"``, once a node with ``loop="cond"``).
+`process_frame` runs eagerly, driven from the host: its only host reads
+are the Hough loop's, one a `run_if` node of a live round (ops/hough.py).
 `make_process_frame` and `make_process_frame_packed` are the JAX package's
 compiled frame: on a card, a step that captures the whole frame into one
 CUDA graph and replays it once a frame, the world map updated in place in
 the graph's own tensors (the JAX step donates its state), the Hough loop's
-rounds and branches conditional nodes that the card decides
-(``loop="cond"``); on the CPU the same step runs eagerly.
+rounds and branches conditional nodes that the card decides; on the CPU
+the same step runs eagerly.
 """
 
 from __future__ import annotations
@@ -91,17 +91,16 @@ def compute_dtype(cfg: PipelineConfig) -> torch.dtype:
 def frame_segments(raw_points: torch.Tensor, position: torch.Tensor,
                    quat_wxyz: torch.Tensor, cfg: PipelineConfig,
                    dir_tables: tuple | None = None, voting: Voting = KERNELS,
-                   shard: AxisGroup | None = None, loop: str = "eager"):
+                   shard: AxisGroup | None = None):
     """The per-frame stages, which touch no world state: filter -> Hough ->
     drone-to-world transform -> floor cutoff.  Returns (filtered, fvalid,
     fcount, hough result, world-frame segments).  With a `shard`, `dir_tables`
     is this rank's slice of the direction table and every rank of the
-    shard's group calls with the same frame (ops/hough.py).  `loop` is the
-    Hough loop's form (ops/hough.extract_lines)."""
+    shard's group calls with the same frame (ops/hough.py)."""
     raw_points = raw_points.to(compute_dtype(cfg))
     filtered, fvalid, fcount = preprocess(raw_points, cfg)
     trace.stamp("preproc.end")
-    hough = extract_lines(filtered, fvalid, cfg, dir_tables, voting, shard, loop)
+    hough = extract_lines(filtered, fvalid, cfg, dir_tables, voting, shard)
 
     frame_segs = hough.segments
     if cfg.surface_offset_correction:
@@ -116,12 +115,11 @@ def process_frame(state: WorldState, raw_points: torch.Tensor,
                   position: torch.Tensor, quat_wxyz: torch.Tensor,
                   cfg: PipelineConfig, dir_tables: tuple | None = None,
                   voting: Voting = KERNELS,
-                  shard: AxisGroup | None = None,
-                  loop: str = "eager") -> tuple[WorldState, FrameOutput]:
+                  shard: AxisGroup | None = None) -> tuple[WorldState, FrameOutput]:
     """One full frame.  raw_points: (N_raw, 3), NaN = invalid return, cast to
     the config's compute_dtype; every tensor on the world state's device."""
     filtered, fvalid, fcount, hough, segs = frame_segments(
-        raw_points, position, quat_wxyz, cfg, dir_tables, voting, shard, loop)
+        raw_points, position, quat_wxyz, cfg, dir_tables, voting, shard)
 
     state, slots = world_step(state, segs, cfg)
     trace.stamp("world.end")
@@ -137,14 +135,13 @@ def process_frame(state: WorldState, raw_points: torch.Tensor,
 def process_frame_packed(state: WorldState, raw_points: torch.Tensor,
                          position: torch.Tensor, quat_wxyz: torch.Tensor,
                          cfg: PipelineConfig, dir_tables: tuple | None = None,
-                         voting: Voting = KERNELS, shard: AxisGroup | None = None,
-                         loop: str = "eager"):
+                         voting: Voting = KERNELS, shard: AxisGroup | None = None):
     """`process_frame`, also returning the frame's host-bound scalars
     (world_count, nlines, status, overflow) as one (4,) int32 tensor, so the
     runtime reads the host once per frame.  The eager body of
     `make_process_frame_packed`."""
     state, out = process_frame(state, raw_points, position, quat_wxyz, cfg,
-                               dir_tables, voting, shard, loop)
+                               dir_tables, voting, shard)
     scalars = torch.stack([out.world_count, out.nlines, out.status, out.overflow])
     return state, out, scalars
 
@@ -178,7 +175,7 @@ class FrameStep:
     position, quat_wxyz)`` -> (state', FrameOutput[, scalars]).
 
     On a card, the first call with a raw shape and type captures the frame
-    (preprocess -> Hough with ``loop="cond"`` ->
+    (preprocess -> Hough, its rounds and branches conditional nodes ->
     offset correction -> transform -> floor cutoff -> world fusion ->
     packed scalars) into one `torch.cuda.CUDAGraph`, and every call replays
     it once.  The world state lives in the step's own tensors
@@ -215,7 +212,7 @@ class FrameStep:
     and every replay of it notes its frame in the ring; one captured with
     tracing off holds none.  Each call is the host span ``step.launch``.
 
-    On the CPU the step is the eager frame with ``loop="cond"``: no graph,
+    On the CPU the step is the eager frame, `process_frame_packed`: no graph,
     no state of its own; with tracing on its stages stamp the host clock
     into the step's own ring.  The tables are the step's: one step, one
     table.
@@ -247,7 +244,7 @@ class FrameStep:
 
     def _frame(self, state, raw_points, position, quat_wxyz):
         return process_frame_packed(state, raw_points, position, quat_wxyz, self.cfg,
-                                    self.dir_tables, KERNELS, None, "cond")
+                                    self.dir_tables, KERNELS)
 
     def _result(self, state, out, scalars):
         return (state, out, scalars) if self.packed else (state, out)
@@ -367,43 +364,10 @@ def make_process_frame_packed(cfg: PipelineConfig, device,
     return FrameStep(cfg, device, dir_tables, packed=True)
 
 
-def batched_process(state: WorldState, clouds: torch.Tensor,
-                    positions: torch.Tensor, quats: torch.Tensor,
-                    cfg: PipelineConfig, dir_tables: tuple | None = None,
-                    voting: Voting = KERNELS, shard: AxisGroup | None = None):
-    """A chunk of F frames in one call: the per-frame stages for each frame,
-    then the order-dependent world fusion (node.cpp:491-510) in frame order.
-    Twin of the JAX package's `make_batched_process`, which vmaps the
-    per-frame stages and scans the fusion.  PyTorch has no vmap over the
-    Hough loop, whose trip count and branches depend on the data, so the
-    frames run in a Python loop: the same operations in the same order as F
-    calls of `process_frame`, hence the same world state bit for bit.  What
-    the chunk saves is host reads: the per-frame scalars come back as four
-    tensors of length F, which the caller reads once per chunk.
-
-    clouds (F, N_raw, 3), positions (F, 3), quats (F, 4) -> (state', nlines
-    (F,), statuses (F,), world_counts (F,), the world size after each frame's
-    fusion, overflows (F,), segments dropped at max_world_segments, D-CAP),
-    all int32 on the state's device.
-    """
-    per_frame = [frame_segments(clouds[i], positions[i], quats[i], cfg,
-                                dir_tables, voting, shard)
-                 for i in range(clouds.shape[0])]
-    nlines, statuses, counts, overflows = [], [], [], []
-    for _, _, _, hough, segs in per_frame:
-        state, slots = world_step(state, segs, cfg)
-        nlines.append(hough.nlines)
-        statuses.append(hough.status)
-        counts.append(state.count)
-        overflows.append((segs.valid & (slots == -1)).sum().to(torch.int32))
-    return (state, torch.stack(nlines), torch.stack(statuses),
-            torch.stack(counts), torch.stack(overflows))
-
-
 __all__ = [
     "FrameOutput", "FrameStep", "WorldState", "init_world", "process_frame",
     "process_frame_packed", "make_process_frame", "make_process_frame_packed",
-    "batched_process", "frame_segments",
+    "frame_segments",
     "transform_segments", "height_cutoff", "surface_offset_correction",
     "compute_dtype",
 ]

@@ -25,18 +25,19 @@ The CPU runs only when the caller asks for it (``device="cpu"``), with the
 plain PyTorch versions of the kernels.  The pipeline's float type is the
 config's ``compute_dtype``: float32, or float64 in the parity mode.
 
-The frame's loop (``loop``).  On a card with the kernels the engine runs
+The frame's loop (``loop``): whether a graph runs the frame.  The Hough
+loop is one (ops/hough.py); ``loop`` decides only who drives it.  With
+``loop="cond"`` (the default on a card with the kernels) the engine runs
 every frame through `pipeline.make_process_frame_packed`: the whole frame is
 one CUDA graph, captured at the first frame and replayed once a frame, the
-world map held in the graph's own tensors and updated in place, and the one
-host read a frame is its four packed scalars.  With ``loop="cond"`` (the
-default there) each Hough round and each branch of its update is a
-conditional node of the graph, which the card runs only when its flag
-holds, as the JAX program runs only the rounds and branches it takes.
-``loop="eager"`` runs the frame as PyTorch ops instead, the Hough loop
-reading the host once a round: the explicit comparison, and the only loop
-for any voting but KERNELS ("cond" with another raises).  On the CPU
-``loop`` defaults to "eager"; "cond" runs the step's eager body.
+world map held in the graph's own tensors and updated in place, each Hough
+round and each branch of its update a conditional node that the card runs
+only when its flag holds, and the one host read a frame is its four packed
+scalars.  ``loop="eager"`` issues the same frame's ops from the host with
+no graph, each node's flag read on the host: the comparison on the card, and
+the only form for any voting but KERNELS ("cond" with another raises, since
+the step captures the kernels).  On the CPU ``loop`` defaults to "eager";
+"cond" runs the step's eager body.
 
 The streaming worker has the JAX engine's two read-back modes.  Deferred (the
 default: ``stream_sync_every`` > 1, no per-frame consumer of the frame's own
@@ -53,8 +54,8 @@ the end.
 What the deferred mode is worth here: with the graph step a frame reads the
 host only for its scalars, so a deferred stream queues replays without
 waiting for any of them; with ``loop="eager"`` the Hough loop reads the host
-every round and only the world-map fusion after its last read can overlap
-(PERF.md has the card's numbers).  It is ported for what it changes in
+at each node of a live round and only the world-map fusion after its last
+read can overlap (PERF.md has the card's numbers).  It is ported for what it changes in
 behaviour too, which callers of the JAX engine rely on (the same constructor
 keys, -1 until the flush, checkpoints at flush boundaries, one viz record a
 flush).  Not ported, because each guards
@@ -86,15 +87,17 @@ from ..convert import (read_checkpoint, read_oracle_checkpoint,
                        world_state_from_numpy, world_state_to_numpy,
                        write_checkpoint, write_oracle_checkpoint)
 from ..geometry import quat_to_rot
-from ..ops.hough import KERNELS, LOOPS, Voting, direction_tables
-from ..pipeline import (batched_process, compute_dtype, make_process_frame_packed,
-                        process_frame_packed)
+from ..ops.hough import KERNELS, Voting, direction_tables
+from ..pipeline import compute_dtype, make_process_frame_packed, process_frame_packed
 from ..worldmap import init_world
 from . import csvio
 from .mailbox import LatestWinsMailbox
 from .posebuffer import PoseBuffer
 
 logger = logging.getLogger("pointcloud_segmentation_tpu_torch")
+
+# the engine's frame loops: one CUDA graph a frame, or the frame from the host
+LOOPS = ("cond", "eager")
 
 # points a viz record carries at most in each point cloud
 _VIZ_POINTS_CAP = 4096
@@ -187,8 +190,9 @@ class SegmentationEngine:
 
         loop: "cond" (the default on a card with voting=KERNELS: one CUDA
         graph a frame, its rounds and branches conditional nodes, see the
-        module's docstring) or "eager" (the default otherwise).  "cond"
-        needs voting=KERNELS and raises with any other.
+        module's docstring) or "eager" (the default otherwise: the same
+        frame issued from the host, no graph).  "cond" needs voting=KERNELS
+        and raises with any other.
 
         backend: "torch" (default) or "oracle", the numpy reference on the
         host, which ignores `device` and `voting` and needs no card.
@@ -640,12 +644,12 @@ class SegmentationEngine:
         checkpoint, viz record or inlier store is made on this path.
 
         batch=k>1 (torch backend only; the oracle backend runs frame by
-        frame): frames go in chunks of k, the per-frame scalars read once per
-        chunk: with the graph step k replays, else one call of
-        `pipeline.batched_process`.  The world map is the synchronous
-        replay's bit for bit; `processing_time` is the chunk's time shared
-        evenly among its frames, and no checkpoint, viz record or inlier
-        store is made on this path."""
+        frame): frames go in chunks of k, each frame with a pose dispatched
+        as on the synchronous path and the per-frame scalars read once per
+        chunk.  The world map is the synchronous replay's bit for bit;
+        `processing_time` is the chunk's time shared evenly among its
+        frames, and no checkpoint, viz record or inlier store is made on
+        this path."""
         if batch > 1 and self.backend == "torch":
             return self._run_replay_batched(frames, batch)
         if pipelined and self.backend == "torch":
@@ -710,49 +714,26 @@ class SegmentationEngine:
     def _run_replay_batched(self, frames, batch: int) -> List[dict]:
         if self._program_start is None:
             self._program_start = time.perf_counter()
-        dev = self.device
         out = []
         for c0 in range(0, len(frames), batch):
             chunk = frames[c0: c0 + batch]
-            # a short last chunk and a frame without a pose stay NaN clouds:
-            # degenerate frames, which leave the world map as it is
-            clouds = np.full((batch, self.cfg.shapes.max_raw_points, 3),
-                             np.nan, self._npdt)
-            poss = np.zeros((batch, 3), self._npdt)
-            quats = np.zeros((batch, 4), self._npdt)
-            quats[:, 0] = 1.0
-            live = []
-            for i, fr in enumerate(chunk):
+            live = []                       # (frame, pose) of each frame with a pose
+            for fr in chunk:
                 self.push_pose(fr.t, fr.position, fr.quat_wxyz)
                 pose = self.poses.lookup(fr.t)
                 if pose is None:
                     self.frames_skipped_no_pose += 1
                     continue
-                clouds[i] = self._pad_raw_host(fr.points)
-                poss[i], quats[i] = pose
-                live.append(i)
+                live.append((fr, pose))
             start = time.perf_counter()
             with self._state_lock, self._on_device():
-                if self._step is not None:
-                    # k replays; a frame without a pose is not replayed
-                    rows = torch.zeros((batch, 4), dtype=torch.int32, device=dev)
-                    for i in live:
-                        self._state, _, scalars = self._step(
-                            self._state, torch.from_numpy(clouds[i]),
-                            torch.from_numpy(poss[i]), torch.from_numpy(quats[i]))
-                        rows[i] = scalars
-                    wc, nl, st, ov = rows.T.tolist()    # one read per chunk
-                else:
-                    self._state, nlines, statuses, counts, overflows = batched_process(
-                        self._state, torch.from_numpy(clouds).to(dev),
-                        torch.from_numpy(poss).to(dev), torch.from_numpy(quats).to(dev),
-                        self.cfg, self._tables, self.voting)
-                    # one device->host read per chunk
-                    nl, st, wc, ov = torch.stack(
-                        [nlines, statuses, counts, overflows]).tolist()
+                rows = torch.zeros((len(live), 4), dtype=torch.int32, device=self.device)
+                for i, (fr, pose) in enumerate(live):
+                    _, rows[i] = self._dispatch(fr.points, *pose)
+                wc, nl, st, ov = rows.T.tolist()    # one read per chunk
                 end = time.perf_counter()
                 per = (end - start) / max(len(live), 1)
-                for i in live:
+                for i, (fr, _) in enumerate(live):
                     rec = {
                         "wall_time": (end - self._program_start) * 1e6,
                         "processing_time": per * 1e6,
@@ -760,10 +741,10 @@ class SegmentationEngine:
                         "nblines": nl[i],
                     }
                     self.records.append(rec)
-                    out.append(dict(rec, status=st[i], t=chunk[i].t))
+                    out.append(dict(rec, status=st[i], t=fr.t))
                     self.frames_processed += 1
                 # D-CAP accounting, as on the synchronous path
-                full = [ov[i] for i in live if ov[i] > 0]
+                full = [n for n in ov if n > 0]
                 self.world_overflow_frames += len(full)
             if full:
                 self._warn_overflow(sum(full), len(full))

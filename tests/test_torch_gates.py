@@ -113,12 +113,13 @@ def frozen_chain(Xs, P2, active, cell_win, b0, c1row, c2row, dx, dv, half32, dx3
 
 
 def recorded_rounds(cfg, frames, gates=G.round_gates_plain):
-    """The arguments of every round's gates over an eager CPU replay of
-    `frames`, recorded by a gates function that passes them on to `gates`."""
+    """The arguments of every round's gates over a host-driven CPU replay of
+    `frames`, recorded by a gates function that passes them on to `gates`;
+    each tensor is copied, since the loop writes its state in place."""
     rounds = []
 
     def record(*args):
-        rounds.append(args)
+        rounds.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
         return gates(*args)
 
     voting = H.Voting(V.vote_state, V.vote_histogram, V.vote_decrement, record)

@@ -1,19 +1,18 @@
-"""The port's Hough loop in the form a card captures into one CUDA graph,
-and the frame step that captures it.
+"""The port's Hough loop, the one a card captures into one CUDA graph, and
+the frame step that captures it.
 
-On the CPU, ``extract_lines(loop="cond")`` runs the very bodies a graph
-captures, each `run_if` node reading its flag on the host as the card's IF
-node does at replay, so it is held bit for bit against ``loop="eager"``
-(the same `_round`, each update sized on the host) in carry and lazy mode
-over every branch of the loop, and against the JAX package's
-`extract_lines` (integers exact, endpoints within 5e-3, README §Precision
-contract).  It runs the eager loop's rounds and makes its voting calls,
-call for call.  The fixed-width compaction is held against the JAX one
-column for column.  `make_process_frame_packed` runs eagerly here and is
-held against the JAX step over a short replay with a NaN frame in it:
-scalars exact, world endpoints within 2e-2, the golden fixtures'
-tolerance.  Inputs are made from numpy seeds with
-tests/test_torch_hough.py's helpers.
+On the CPU, `extract_lines` runs the very bodies a graph captures, each
+`run_if` node reading its flag on the host as the card's IF node does at
+replay.  It is held in carry and lazy mode over every branch of the loop
+against the JAX package's `extract_lines` (integers exact, endpoints within
+5e-3, README §Precision contract) and against each case's status, line
+count and rounds, absolute numbers; over every lazy suspect tier against
+the tiers' expected voting calls and against carry voting.  The
+fixed-width compaction is held against the JAX one column for column.
+`make_process_frame_packed` runs eagerly here and is held against the JAX
+step over a short replay with a NaN frame in it: scalars exact, world
+endpoints within 2e-2, the golden fixtures' tolerance.  Inputs are made
+from numpy seeds with tests/test_torch_hough.py's helpers.
 """
 
 import numpy as np
@@ -90,6 +89,13 @@ def cloud_case(name):
 
 CASES = ["scene0", "scene1", "scene2", "spill", "empty", "one_point", "tiny",
          "bx_zero", "no_line", "reaches_opt_nlines", "max_iters"]
+# each case's (status, nlines, rounds run), the same in carry and lazy mode:
+# status 1 degenerate, 2 dx >= d, 3 the b.x == 0 abort (nlines reported 0);
+# a round that finds no line ends the loop, one more round than lines
+EXPECTED = {"scene0": (0, 1, 1), "scene1": (0, 2, 2), "scene2": (0, 1, 1),
+            "spill": (0, 2, 2), "empty": (1, 0, 0), "one_point": (1, 0, 0),
+            "tiny": (2, 0, 0), "bx_zero": (3, 0, 1), "no_line": (0, 0, 1),
+            "reaches_opt_nlines": (0, 2, 2), "max_iters": (0, 3, 3)}
 
 
 def torch_inputs(pts, cfg):
@@ -189,39 +195,28 @@ def test_removed_cell_keys_match_jax_at_sub_chunk(n_rem):
     assert (kj[:, min(n_rem, 512):] == NX * NX).all()
 
 
-# ---------------------------------------------------------------- the two loops
+# ---------------------------------------------------------------- the loop
 
 
 @pytest.mark.parametrize("mode", ["carry", "lazy"])
 @pytest.mark.parametrize("case", CASES)
 def test_graph_loop_equals_eager_and_jax(case, mode, monkeypatch):
-    """The captured form, loop="cond", == loop="eager" bit for bit; both ==
-    JAX within the precision contract; and the rounds: the cond loop runs
-    the eager loop's, at most round_count(cfg), the rounds it unrolls."""
+    """The loop == JAX within the precision contract, and the case's status,
+    line count and rounds are its expected ones, at most round_count(cfg),
+    the rounds the loop issues."""
     pts, cfg = cloud_case(case)
     cfg = cfg.replace(voting=mode)
     p, v = torch_inputs(pts, cfg)
-    rounds = Rounds(monkeypatch)
-    re, n_eager = rounds.run(p, v, cfg, loop="eager")
-    rg, n_cond = rounds.run(p, v, cfg, loop="cond")
-    assert_bit_equal(rg, re)
-    R = TH.round_count(cfg)
-    assert n_cond == n_eager <= R
+    rg, n_rounds = Rounds(monkeypatch).run(p, v, cfg)
     rj = extract_lines_jit(jnp.asarray(p.numpy()), jnp.asarray(v.numpy()), cfg)
     assert_same_extraction(rj, rg)
-    status, nlines = int(rg.status), int(rg.nlines)
-    if case in ("empty", "one_point"):
-        assert status == 1 and n_eager == 0
-    elif case == "tiny":
-        assert status == 2 and n_eager == 0
-    elif case == "bx_zero":
-        assert status == 3 and nlines == 0 and n_eager == 1
-    elif case == "no_line":
-        assert status == 0 and nlines == 0 and n_eager == 1
-    elif case == "reaches_opt_nlines":
-        assert nlines == cfg.opt_nlines == n_eager == R      # the bound is tight
+    R = TH.round_count(cfg)
+    assert (int(rg.status), int(rg.nlines), n_rounds) == EXPECTED[case]
+    assert n_rounds <= R
+    if case == "reaches_opt_nlines":
+        assert n_rounds == cfg.opt_nlines == R               # the bound is tight
     elif case == "max_iters":
-        assert cfg.opt_nlines == 0 and nlines == n_eager == R == 3
+        assert cfg.opt_nlines == 0 and n_rounds == R == 3
     elif case == "spill":
         assert int(rg.segments.points_size[0]) > 512
 
@@ -259,8 +254,8 @@ def test_every_suspect_tier_graph_equals_eager(cap, monkeypatch):
     does (one 128-row tier, then the rebuild).  These scenes' rounds have
     either no suspect or all 1,408, so at 2048 the 256-row tier and the
     1,408-row tier are taken, and at 128 the 128-row tier and the rebuild.
-    In every scene the cond loop makes the eager loop's vote_state calls in
-    the same order and gives the same lines, equal to carry's."""
+    In every scene the loop's first vote_state call is the whole table, the
+    tiers its calls take are those, and its lines equal carry's."""
     monkeypatch.setattr(TH, "_SUSPECT_CAP", cap)
     cfg = default_config(granularity=4, opt_nlines=8, opt_minvotes=10, min_pca_coeff=0.8,
                          shapes=StaticShapes(max_raw_points=4096, max_points=2048))
@@ -268,18 +263,12 @@ def test_every_suspect_tier_graph_equals_eager(cap, monkeypatch):
     seen = set()
     for seed in SUSPECT_SCENES:
         p, v = torch_inputs(suspect_scene(seed), cfg)
-        runs = {}
-        for loop in ("eager", "cond"):
-            st = Calls(V.vote_state)
-            res = TH.extract_lines(p, v, cfg.replace(voting="lazy"),
-                                   voting=TH.Voting(st, V.vote_histogram), loop=loop)
-            runs[loop] = (res, st.calls)
-        (re, calls_e), (rg, calls_g) = runs["eager"], runs["cond"]
-        assert_bit_equal(rg, re)
-        assert calls_e == calls_g and calls_e[0] == "table"
-        seen |= set(calls_e[1:])
-        rc = TH.extract_lines(p, v, cfg.replace(voting="carry"), loop="cond")
-        assert_bit_equal(rg, rc)
+        st = Calls(V.vote_state)
+        rl = TH.extract_lines(p, v, cfg.replace(voting="lazy"),
+                              voting=TH.Voting(st, V.vote_histogram))
+        assert st.calls[0] == "table"
+        seen |= set(st.calls[1:])
+        assert_bit_equal(rl, TH.extract_lines(p, v, cfg.replace(voting="carry")))
     assert seen == want, (want, seen)
 
 
@@ -287,25 +276,22 @@ def test_every_suspect_tier_graph_equals_eager(cap, monkeypatch):
 
 
 def test_graph_loop_refuses_plain_and_shards():
-    """The captured form refuses what a capture cannot hold, before any
-    collective; there is no other captured form (the masked "graph" loop
-    is gone)."""
+    """The engine refuses a loop it does not have (the masked "graph" loop
+    is gone) and the captured step with voting functions it does not
+    capture; uncaptured, the plain voting functions run the one loop, equal
+    to the kernels' (the plain versions, on CPU tensors)."""
     pts, cfg = cloud_case("scene0")
     p, v = torch_inputs(pts, cfg)
-    with pytest.raises(ValueError, match="plain"):
-        TH.extract_lines(p, v, cfg, voting=TH.PLAIN, loop="cond")
-    shard = TH.AxisGroup(None, 0, 2)
-    tables = TH.direction_tables(cfg.granularity, "cpu")
-    with pytest.raises(ValueError, match="shard"):
-        TH.extract_lines(p, v, cfg, tables, shard=shard, loop="cond")
     for loop in ("while", "graph"):
         with pytest.raises(ValueError, match="loop"):
-            TH.extract_lines(p, v, cfg, loop=loop)
-        with pytest.raises(ValueError, match="loop"):
             SegmentationEngine(cfg, device="cpu", loop=loop)
-    assert shard.collectives == 0
     with pytest.raises(ValueError, match="KERNELS"):
         SegmentationEngine(cfg, device="cpu", voting=TH.PLAIN, loop="cond")
+    for mode in ("carry", "lazy"):
+        c = cfg.replace(voting=mode)
+        rp = TH.extract_lines(p, v, c, voting=TH.PLAIN)
+        assert int(rp.nlines) > 0
+        assert_bit_equal(rp, TH.extract_lines(p, v, c))
 
 
 # ---------------------------------------------------------------- the frame step
@@ -324,8 +310,8 @@ def raw_of(fr, cfg):
 
 @pytest.mark.parametrize("voting", ["carry", "lazy"])
 def test_frame_step_matches_jax_step(voting):
-    """The port's make_process_frame_packed (eager on the CPU, its Hough
-    loop loop="cond") against the JAX one over the golden g2 replay with a
+    """The port's make_process_frame_packed (eager on the CPU) against the
+    JAX one over the golden g2 replay with a
     NaN frame third: the packed scalars exact each frame, the world map's
     endpoints within 2e-2 at the end; make_process_frame gives the same
     frame without the scalars."""
@@ -359,8 +345,8 @@ def test_frame_step_matches_jax_step(voting):
 
 
 def test_frame_step_equals_eager_frame():
-    """On the CPU the step is the eager frame with loop="cond": the same
-    world map, outputs and scalars as process_frame_packed's eager loop."""
+    """On the CPU the step is the eager frame: the same world map, outputs
+    and scalars as a direct call of process_frame_packed."""
     cfg = default_config(granularity=3, voting="lazy", shapes=StaticShapes(
         max_raw_points=4096, max_points=2048, max_world_segments=32))
     step = make_process_frame_packed(cfg, "cpu")
@@ -377,8 +363,9 @@ def test_frame_step_equals_eager_frame():
 
 def test_engine_graph_loop_on_the_cpu_equals_eager(tmp_path):
     """The engine with loop="cond" on the CPU (the step's eager body)
-    against loop="eager": records and world map equal, through a pipelined
-    replay, a checkpoint resume and a batched replay."""
+    against loop="eager" (process_frame_packed called directly): records
+    and world map equal, through a pipelined replay, a checkpoint resume and
+    a batched replay."""
     cfg = default_config(granularity=2, shapes=StaticShapes(
         max_raw_points=4096, max_points=2048, max_world_segments=32))
     frames = replay_frames(6)

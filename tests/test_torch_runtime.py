@@ -610,26 +610,22 @@ def test_batched_replay_accounts_for_d_cap_overflow(caplog):
     assert len(msgs) == 1 and "D-CAP" in msgs[0] and "across 3 frame(s)" in msgs[0]
 
 
-def test_batched_process_returns_device_tensors_of_length_f(frames):
-    from pointcloud_segmentation_tpu_torch.ops.hough import direction_tables
-    from pointcloud_segmentation_tpu_torch.pipeline import (batched_process,
-                                                            process_frame_packed)
-    from pointcloud_segmentation_tpu_torch.worldmap import init_world
-
-    eng = SegmentationEngine(CFG, device="cpu")
-    clouds = torch.stack([eng._pad_raw(f.points) for f in frames[:3]])
-    pos = torch.tensor(np.stack([f.position for f in frames[:3]]), dtype=torch.float32)
-    quat = torch.tensor(np.stack([f.quat_wxyz for f in frames[:3]]), dtype=torch.float32)
-    tables = direction_tables(CFG.granularity, "cpu")
-    state, nl, st, wc, ov = batched_process(init_world(CFG, "cpu"), clouds, pos, quat,
-                                            CFG, tables)
-    assert all(t.shape == (3,) and t.dtype == torch.int32 for t in (nl, st, wc, ov))
-    one = init_world(CFG, "cpu")
-    for i in range(3):
-        one, out, scalars = process_frame_packed(one, clouds[i], pos[i], quat[i], CFG, tables)
-        assert scalars.dtype == torch.int32
-        assert scalars.tolist() == [int(wc[i]), int(nl[i]), int(st[i]), int(ov[i])]
-    assert all(torch.equal(getattr(state, k), getattr(one, k)) for k in state._fields)
+def test_batched_replay_reads_the_scalars_once_a_chunk(frames, monkeypatch):
+    """run_replay(batch=k) reads its frames' packed scalars with one
+    device-to-host list a chunk, for every frame of the chunk, where the
+    synchronous replay reads one a frame; the records are the synchronous
+    replay's."""
+    reads = []
+    tolist = torch.Tensor.tolist
+    monkeypatch.setattr(torch.Tensor, "tolist",
+                        lambda t: reads.append(tuple(t.shape)) or tolist(t))
+    recs = SegmentationEngine(CFG, device="cpu").run_replay(frames[:5], batch=4)
+    assert reads == [(4, 4), (4, 1)]
+    reads.clear()
+    want = SegmentationEngine(CFG, device="cpu").run_replay(frames[:5])
+    assert reads == [(4,)] * 5
+    for f in ("seg_vec_size", "nblines", "status", "t"):
+        assert [r[f] for r in recs] == [r[f] for r in want], f
 
 
 # ------------------------------------------------------------------ float64 engine

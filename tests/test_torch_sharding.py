@@ -38,7 +38,7 @@ from pointcloud_segmentation_tpu_torch.io.simulator import TofSpec, simulate_tra
 from pointcloud_segmentation_tpu_torch.ops.hough import PLAIN, SegmentBatch, pick_winner
 from pointcloud_segmentation_tpu_torch.parallel import make_mesh, spawn
 from pointcloud_segmentation_tpu_torch.pipeline import (
-    batched_process, frame_segments, process_frame, transform_segments)
+    frame_segments, process_frame, process_frame_packed, transform_segments)
 from pointcloud_segmentation_tpu_torch.worldmap import init_world
 
 SHAPES = dict(max_raw_points=1024, max_points=512, max_world_segments=16)
@@ -249,9 +249,10 @@ def test_multichip_step_matches_single_device(pool, n_batch, n_dir):
     assert (got["collectives"] > 0) == (n_dir > 1)
     if (n_batch, n_dir) == (4, 2):      # one JAX run serves the three meshes
         world_close_to_jax(got["state"], ref_outs, CFG, F8, 2e-2)
-        # the batched building block gives the same map
-        st, nl, _, _, _ = batched_process(init_world(CFG, "cpu"), *tensors(CFG, F8), CFG,
-                                          voting=PLAIN)
+        # frame after frame through the packed frame gives the same map
+        st = init_world(CFG, "cpu")
+        for cloud, pos, quat in zip(*tensors(CFG, F8)):
+            st, _, _ = process_frame_packed(st, cloud, pos, quat, CFG, voting=PLAIN)
         assert same_arrays(world_state_to_numpy(st), ref_state)
 
 

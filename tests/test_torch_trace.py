@@ -116,9 +116,10 @@ def test_on_a_cpu_frame_stamps_its_stages_in_order_and_the_engine_spans_nest():
 
 @pytest.mark.parametrize("opt_nlines", [0, 3])
 def test_live_rounds_are_the_rounds_the_eager_loop_runs(opt_nlines, monkeypatch):
-    """The cond step's stamped rounds against an independent count of the
-    eager loop's: every round refines its line twice (`_line_distance2` of
-    the plain gates, ops/gates.py, which a CPU tensor takes)."""
+    """The step's stamped rounds against an independent count of the rounds
+    the same frames ran: every round refines its line twice
+    (`_line_distance2` of the plain gates, ops/gates.py, which a CPU tensor
+    takes)."""
     from pointcloud_segmentation_tpu_torch.ops import gates as G
 
     frames = small_frames(4)
@@ -126,15 +127,13 @@ def test_live_rounds_are_the_rounds_the_eager_loop_runs(opt_nlines, monkeypatch)
     calls = []
     real = G._line_distance2
     monkeypatch.setattr(G, "_line_distance2", lambda *a: calls.append(1) or real(*a))
-    eager = SegmentationEngine(cfg, device="cpu", loop="eager")
+    trace.enable()
+    eng = SegmentationEngine(cfg, device="cpu", loop="cond")
     rounds = []
     for fr in frames:
         n = len(calls)
-        run(eager, [fr])
+        run(eng, [fr])
         rounds.append((len(calls) - n) // 2)
-    monkeypatch.setattr(G, "_line_distance2", real)
-    trace.enable()
-    run(SegmentationEngine(cfg, device="cpu", loop="cond"), frames)
     out = trace.export()
     assert [f["live_rounds"] for f in out["frames"]] == rounds
     assert max(rounds) > 0
@@ -142,50 +141,68 @@ def test_live_rounds_are_the_rounds_the_eager_loop_runs(opt_nlines, monkeypatch)
         assert max(rounds) <= opt_nlines
 
 
-def eager_branches(cfg, frames):
-    """Each frame's (increment rounds, rebuild rounds) as the eager loop read
-    them on the host, counted from the voting calls it issued: a carry
-    frame votes a histogram at its init, one of the removed points (at most
-    `_SUB_CHUNK` rows) a subtract and one of every point a rebuild; a lazy
-    frame decrements once an increment, and beyond its init votes the state
-    once an increment (the re-exam) and once a rebuild."""
-    calls = []
+class CountedVoting:
+    """The plain voting functions, which the kernels' wrappers call on CPU
+    tensors, each call recorded: ("state", whole table or not), ("hist",
+    rows handed), ("dec", rows handed)."""
 
-    def counted(name, fn):
-        return lambda Xs, *a: calls.append((name, Xs.shape[0])) or fn(Xs, *a)
+    def __init__(self, monkeypatch):
+        self.calls = []
+        self.table = None
+        state = V.vote_state_plain
 
-    voting = H.Voting(*(counted(n, f) for n, f in zip(("state", "hist", "dec"), H.PLAIN)))
-    eng = SegmentationEngine(cfg, device="cpu", loop="eager", voting=voting)
-    out = []
-    for fr in frames:
-        calls.clear()
-        run(eng, [fr])
+        def counted_state(Xs, active, c1, *a):
+            if self.table is None:
+                self.table = c1.data_ptr()   # the first call: the initial state
+            self.calls.append(("state", c1.data_ptr() == self.table))
+            return state(Xs, active, c1, *a)
+
+        def counted(name, fn):
+            return lambda Xs, *a: self.calls.append((name, Xs.shape[0])) or fn(Xs, *a)
+
+        monkeypatch.setattr(V, "vote_state_plain", counted_state)
+        monkeypatch.setattr(V, "vote_histogram_plain", counted("hist", V.vote_histogram_plain))
+        monkeypatch.setattr(V, "vote_decrement_plain", counted("dec", V.vote_decrement_plain))
+
+    def branches(self, cfg, n_points):
+        """(increment rounds, rebuild rounds) of the calls since the last
+        `clear`: a carry frame votes a histogram of every point at its init
+        and at each rebuild, and one of `_SUB_CHUNK` compacted columns a
+        subtract; a lazy frame decrements once an increment, and votes the
+        whole table at its init and at each rebuild."""
         if cfg.voting_mode == "carry":
-            full = [n for name, n in calls if name == "hist"]
-            inc = sum(1 for n in full[1:] if n <= H._SUB_CHUNK)
-            out.append((inc, len(full[1:]) - inc))
-        else:
-            inc = sum(1 for name, _ in calls if name == "dec")
-            n_state = sum(1 for name, _ in calls if name == "state")
-            out.append((inc, max(n_state - 1 - inc, 0)))
-    return out
+            rows = [n for name, n in self.calls if name == "hist"]
+            inc = rows.count(min(H._SUB_CHUNK, n_points))
+            return inc, rows.count(n_points) - 1
+        inc = sum(1 for name, _ in self.calls if name == "dec")
+        return inc, sum(1 for name, whole in self.calls if name == "state" and whole) - 1
+
+    def clear(self):
+        self.calls.clear()
+        self.table = None
 
 
 @pytest.mark.parametrize("voting", ["carry", "lazy"])
 def test_the_update_tallies_are_the_branches_the_eager_loop_read(voting, monkeypatch):
     """A traced CPU replay's per-frame tallies of increment and rebuild rounds
-    equal the branches the eager loop read, their sums are the exported
-    counters and the live rounds less each frame's last, and every live
-    round stamps one ``round[r].vote.begin``.  A 48-column update makes a
-    round that removes more points rebuild, so both branches run."""
+    equal the branches counted from the voting calls the same frames made,
+    their sums are the exported counters and the live rounds less each
+    frame's last, and every live round stamps one ``round[r].vote.begin``.
+    A 48-column update makes a round that removes more points rebuild, so
+    both branches run."""
     monkeypatch.setattr(H, "_SUB_CHUNK", 48)
     frames = small_frames(4)
     cfg = small_cfg(voting=voting)
     assert cfg.voting_mode == voting
-    want = eager_branches(cfg, frames)
-    assert sum(i for i, _ in want) > 0 and sum(r for _, r in want) > 0
+    counted = CountedVoting(monkeypatch)
     trace.enable()
-    run(SegmentationEngine(cfg, device="cpu", loop="cond"), frames)
+    eng = SegmentationEngine(cfg, device="cpu", loop="cond")
+    want = []
+    for fr in frames:
+        counted.clear()
+        run(eng, [fr])
+        want.append(counted.branches(cfg, cfg.shapes.max_points))
+    assert sum(i for i, _ in want) > 0 and sum(r for _, r in want) > 0
     out = trace.export()
     got = [(f["tallies"]["hough.increment_rounds"], f["tallies"]["hough.rebuild_rounds"])
            for f in out["frames"]]

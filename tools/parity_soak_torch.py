@@ -239,9 +239,9 @@ def knife_edge_trace(seed: int, mode: str = "base", f64: bool = False,
     loop refined, in order (the value the reference aborts on when it is
     exactly 0.0), and that direction whole (``b``): the oracle's read by
     tapping its canonicalize_direction for the run, the torch backend's from
-    each round's gates (ops/gates.py, the kernel on a card), which its eager
-    loop (``loop="eager"``) calls as the rounds run, ending with the frame's
-    last live round.  ``errors`` is `compare_worlds` of the two world maps."""
+    each round's gates (ops/gates.py, the kernel on a card), which its
+    host-driven frame (``loop="eager"``) calls as the rounds run, ending
+    with the frame's last live round.  ``errors`` is `compare_worlds` of the two world maps."""
     from pointcloud_segmentation_tpu_torch.ops.hough import KERNELS, Voting
     from pointcloud_segmentation_tpu_torch.oracle import _geometry
     from pointcloud_segmentation_tpu_torch.runtime import SegmentationEngine
