@@ -295,7 +295,7 @@ class Shapes:
         self.lib = load_library()
         self.earlier = earlier   # an earlier library, timed beside this one
         self.errs = {"vote_state": 0, "vote_histogram": 0, "vote_decrement": 0,
-                     "round_gates": 0.0}
+                     "vote_reexam": 0, "round_gates": 0.0}
         self.times = []
 
     def state(self, label, p, c1, c2, active=None, timed=False):
@@ -604,6 +604,74 @@ def gates_phase(dev, frames, card, sh):
         order = sorted(range(len(rounds)), key=lambda k: nvs[k])
         for tag, k in (("median", order[len(order) // 2]), ("largest", order[-1])):
             sh.gates(f"{label} replay, the round of {tag} inlier count", rounds[k], nvs[k])
+
+
+def reexam_phase(dev, frames, card, sh):
+    """The re-exam kernel against its plain version on every lazy increment
+    of the main path's g6 replay (best, key, ub and the overflow flag exact),
+    then timed at the increments of median and of largest suspect count:
+    CUDA-graph replays of the state's restore and the launch, less those of
+    the restore alone; the bound is the state kernel's over the suspect
+    rows."""
+    from pointcloud_segmentation_tpu_torch import SegmentationEngine
+    from pointcloud_segmentation_tpu_torch.config import default_config
+    from pointcloud_segmentation_tpu_torch.ops import voting as V
+    from pointcloud_segmentation_tpu_torch.ops.hough import Voting
+
+    calls = []
+
+    def record(*args):
+        calls.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        return V.vote_reexam(*args)
+
+    SegmentationEngine(default_config(), dev, voting=Voting(
+        V.vote_state, V.vote_histogram, vote_reexam=record), loop="eager").run_replay(frames)
+    bad, suspects = [], []
+    for k, args in enumerate(calls):
+        X, a, c1, c2, half, dx, nx, NX, best, key, ub, s_cap, m_lb = args
+        outs = []
+        for fn in (V.vote_reexam, V.vote_reexam_plain):
+            state = [t.clone() for t in (best, key, ub)]
+            outs.append(state + [fn(X, a, c1, c2, half, dx, nx, NX, *state, s_cap, m_lb)])
+        if not all(torch.equal(x, y) for x, y in zip(*outs)):
+            bad.append(k)
+        suspects.append(int((ub >= best.max()).sum()))
+    sh.errs["vote_reexam"] = len(bad)
+    check(not bad and max(suspects) > 0,
+          f"vote_reexam == plain on every lazy increment of the g6 replay ({len(calls)} "
+          f"re-exams, {calls[0][8].shape[0]} rows, suspects {min(suspects)}-"
+          f"{max(suspects)}, {sum(n > calls[0][11] for n in suspects)} past the cap of "
+          f"{calls[0][11]}): best, key, ub and the overflow flag equal (calls that "
+          f"differ {bad})")
+    order = sorted(range(len(calls)), key=lambda k: suspects[k])
+    for tag, k in (("median", order[len(order) // 2]), ("largest", order[-1])):
+        X, a, c1, c2, half, dx, nx, NX, best, key, ub, s_cap, m_lb = calls[k]
+        state = [t.clone() for t in (best, key, ub)]
+
+        def restore():
+            for t, t0 in zip(state, (best, key, ub)):
+                t.copy_(t0)
+
+        def restore_and_launch():
+            restore()
+            V.vote_reexam(X, a, c1, c2, half, dx, nx, NX, *state, s_cap, m_lb)
+
+        ms = graph_ms(restore_and_launch) - graph_ms(restore)
+        plain_ms = event_ms(lambda: V.vote_reexam_plain(X, a, c1, c2, half, dx, nx, NX,
+                                                        *[t.clone() for t in state], s_cap,
+                                                        m_lb), 3)
+        n, n_act = suspects[k], int(a.sum())
+        b_ms, b_by = bound("vote_state", X.shape[0], n_act, max(n, 1), NX)
+        label = f"g6 replay, the increment of {tag} suspect count"
+        sh.times.append({"name": "vote_reexam", "shape": label, "rows": n, "n": X.shape[0],
+                         "active": n_act, "nx": NX, "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                         "earlier_ms": None})
+        print(f"time  vote_reexam, {label} ({c1.shape[0]} rows, {n} suspect, N "
+              f"{X.shape[0]}, {n_act} active, NX {NX}): kernel {ms:.4f} ms (restore "
+              f"and launch less restore, in a graph), bound {b_ms:.5f} ms ({b_by}, "
+              f"{b_ms / ms:.1%} of it), plain {plain_ms:.4f} ms, library none [{card}]",
+              flush=True)
 
 
 SHARD_LABEL = "a direction shard, {gran}, 1 of {n}"
@@ -1226,6 +1294,12 @@ def main_path(cfg6, cfg4, frames, dev, k6, k4, card):
                   f"{label} replay through the cond step: vote_decrement ran in {dec_ran} of "
                   f"the {dec_captured} launches its graphs hold: the host-driven replay's {n_inc} "
                   f"increment rounds and frame 0's {first} again in the capture's warm-up")
+            # one re-exam an increment round, after its decrement
+            rx_captured, rx_ran = launches["vote_reexam"] = loop_counts(V.vote_reexam)
+            check(rx_ran == dec_ran < rx_captured,
+                  f"{label} replay through the cond step: vote_reexam ran in {rx_ran} of "
+                  f"the {rx_captured} launches its graphs hold, once a decrement; "
+                  f"{V.reexamined_rows()} rows re-examined")
         # one gates launch a live round, each of which ran
         gates_captured, gates_ran = loop_counts(V.round_gates)
         launches[f"round_gates {label}"] = (gates_captured, gates_ran)
@@ -3028,7 +3102,9 @@ def main() -> None:
         print("one stack only: no result lines", flush=True)
         sys.exit(3)
     if args.graph_only:
-        gates_phase(dev, frames, card, kernel_checks(dev, frames[len(frames) // 2], card))
+        sh = kernel_checks(dev, frames[len(frames) // 2], card)
+        gates_phase(dev, frames, card, sh)
+        reexam_phase(dev, frames, card, sh)
         k6, _ = counted_run("g6 replay", cfg6, frames, dev, "vote_state", per_frame=True)
         k4, _ = counted_run("g4 replay", cfg4, frames, dev, "vote_histogram", per_frame=True)
         k6s, _ = counted_run("g6 replay at radius 0.015", default_config(radius_sizes=(0.015,)),
@@ -3072,6 +3148,7 @@ def whole_run(cfg6, cfg4, frames, dev, card, earlier, oracle6):
 
     sh = kernel_checks(dev, frames[len(frames) // 2], card, earlier)
     gates_phase(dev, frames, card, sh)
+    reexam_phase(dev, frames, card, sh)
     golden_checks(dev)
 
     cfg6s = default_config(radius_sizes=(0.015,))
@@ -3178,6 +3255,18 @@ def whole_run(cfg6, cfg4, frames, dev, card, earlier, oracle6):
         "launches_ran": ran, "max_abs_err": sh.errs["round_gates"], "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": None, "shapes": gshapes})
+    rshapes = [r for r in sh.times if r["name"] == "vote_reexam"]
+    head = rshapes[0]                      # the g6 replay's increment of median suspects
+    captured, ran = launches["vote_reexam"]
+    kernels.append({
+        "name": "vote_reexam", "route": "cuda",
+        "source": "pointcloud_segmentation_tpu_torch/csrc/voting.cu",
+        "replaces": "none (the tiered suspect re-exam of pointcloud_segmentation_tpu/ops/"
+                    "hough.py: gathers, _vote_state_tiles, scatters)", "launches": ran,
+        "launches_captured": captured, "launches_ran": ran,
+        "max_abs_err": sh.errs["vote_reexam"], "ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": None, "shapes": rshapes})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

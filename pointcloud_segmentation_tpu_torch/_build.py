@@ -53,6 +53,10 @@ _SIGNATURES = {
     "pcs_vote_bins": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _P),
     # xs, removed, n, c1, c2, nb, half_dx, num_x, nxs, key, best, best_d, stream
     "pcs_vote_decrement": (_P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P),
+    # xs, active, n, c1, c2, nb, half_dx, num_x, nxs, best, key, ub, m_lb,
+    # s_cap, list, over, ran, rows_ran, stream
+    "pcs_vote_reexam": (_P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P,
+                        _P, _P),
     # is64, xs, p2, active, n, cell, cell64, b0, c1row, c2row, dx, dv, half32,
     # dx32, min_nb_denom, rs, nrs, shift, minvotes, min_pca, rs_max, nxs, keys,
     # m2, nv, flags, out, stream

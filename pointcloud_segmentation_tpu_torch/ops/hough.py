@@ -4,19 +4,21 @@ Twin of the JAX package's ops/hough.py, mode for mode: "carry" keeps the
 exact (B, NX, NX) accumulator and subtracts each extracted line's inliers;
 "lazy" keeps only (best, key, ub) per direction, decrements each best cell by
 the removed points' votes (one kernel, `vote_decrement`) and re-examines the
-directions whose bound could reach the global max.  The voting itself goes
-through ops/voting.py, and each round's gates (winner's line, refinements,
-acceptance tests) through ops/gates.py: the CUDA kernels for CUDA tensors,
-the plain versions for CPU tensors (or for CUDA tensors, when a caller passes
-``voting=PLAIN`` to compare the two).
+directions whose bound could reach the global max (one kernel,
+`vote_reexam`).  The voting itself goes through ops/voting.py, and each
+round's gates (winner's line, refinements, acceptance tests) through
+ops/gates.py: the CUDA kernels for CUDA tensors, the plain versions for CPU
+tensors (or for CUDA tensors, when a caller passes ``voting=PLAIN`` to
+compare the two).
 
 The loop is the JAX package's: one function, `_round`, is the body of the
 JAX ``lax.while_loop``, masked by a device flag ``live`` (the loop's
 condition), so a round that is not live changes nothing.  `round_count(cfg)`
 rounds are issued, each inside `run_if` on its ``live`` flag, and each
 ``lax.switch`` branch of the update (keep / increment or subtract / rebuild,
-and the lazy re-exam's tier) inside a nested `run_if` on its own flag, so
-only the rounds and branches the JAX program runs issue their ops.  While a
+and the lazy re-exam's overflow into a rebuild) inside a nested `run_if` on
+its own flag, so only the rounds and branches the JAX program runs issue
+their ops.  While a
 CUDA graph is captured (pipeline.make_process_frame) each `run_if` is a
 conditional node, the device deciding at replay; anywhere else (the CPU, or
 the card outside a capture: the host-driven engine, the plain voting
@@ -67,25 +69,29 @@ from .voting import _compact_removed
 class Voting(NamedTuple):
     """The voting functions extract_lines calls (see ops/voting.py), and a
     round's gates (ops/gates.py).  A caller that names only the first two
-    gets the decrement and gates kernels."""
+    gets the decrement, gates and re-exam kernels."""
 
     vote_state: object
     vote_histogram: object
     vote_decrement: object = V.vote_decrement
     round_gates: object = G.round_gates
+    vote_reexam: object = V.vote_reexam
 
 
-KERNELS = Voting(V.vote_state, V.vote_histogram, V.vote_decrement, G.round_gates)
+KERNELS = Voting(V.vote_state, V.vote_histogram, V.vote_decrement, G.round_gates,
+                 V.vote_reexam)
 PLAIN = Voting(V.vote_state_plain, V.vote_histogram_plain, V.vote_decrement_plain,
-               G.round_gates_plain)
+               G.round_gates_plain, V.vote_reexam_plain)
 
 _VOTE_TILE = 128       # direction tables are padded to a multiple of this
 _SUB_CHUNK = 512       # removed-point columns of the incremental update
 _SUSPECT_CAP = 2048    # lazy voting: most directions re-examined per round
 # the tracer's per-frame counts of the update's branches (trace.tally): the
-# rounds that took the increment (carry subtract, lazy decrement) and those
-# that rebuilt the voting state
-TALLIES = ("hough.increment_rounds", "hough.rebuild_rounds")
+# rounds that took the increment (carry subtract, lazy decrement), those
+# that rebuilt the voting state, and the lazy increments whose suspects
+# overflowed the re-exam into a rebuild
+TALLIES = ("hough.increment_rounds", "hough.rebuild_rounds",
+           "hough.suspect_overflow_rounds")
 
 
 class SegmentBatch(NamedTuple):
@@ -472,7 +478,6 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
     lazy = cfg.voting_mode == "lazy"
     sub_chunk = min(_SUB_CHUNK, N)
     s_cap = max(_VOTE_TILE, (min(B, _SUSPECT_CAP) // _VOTE_TILE) * _VOTE_TILE)
-    s_tier = min(s_cap, 2 * _VOTE_TILE)
     it_bound = iteration_bound(cfg)
 
     def vstate_init(active0):
@@ -495,35 +500,6 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
         cell_win = _first_true(_row(votes, b_win).reshape(cells) == M)
         return M, b_win, cell_win
 
-    def exam(vs, suspect, cap, active_next):
-        """Recompute (best, key, ub) of <= cap suspect directions."""
-        best, key, ub = vs
-        spos = torch.cumsum(suspect.to(torch.int32), 0, dtype=torch.int32) - 1
-        # suspects past cap (this tier is not the round's) go to the dropped
-        # sentinel too: an index past the buffer would fault on a card
-        spos = torch.where(suspect, torch.clamp_max(spos, cap), cap).to(torch.int64)
-        idx = torch.full((cap + 1,), B, dtype=torch.int64, device=dev)
-        idx.index_copy_(0, spos, torch.arange(B, device=dev))
-        idx = idx[:cap]
-        idx_c = torch.clamp_max(idx, B - 1)
-        bs, ks, us = voting.vote_state(Xv, active_next, c1[idx_c].contiguous(),
-                                       c2[idx_c].contiguous(), half32, dx32, num_x, NX)
-        return (scatter_rows(best, idx, bs), scatter_rows(key, idx, ks),
-                scatter_rows(ub, idx, us))
-
-    def decrement(vs, m2):
-        """The lazy incremental update's first step: each
-        direction's best count less the votes the removed points of m2 cast
-        in its best cell (one kernel, reading the mask itself), and the
-        directions whose bound could still reach the new maximum.  Returns
-        (the decremented state, suspect (B,) bool)."""
-        best, key, ub = vs
-        best_d = voting.vote_decrement(Xv, m2, c1, c2, half32, dx32, num_x, NX, key, best)
-        M_lb = best_d.max()
-        if shard is not None:
-            M_lb = shard.max(M_lb)
-        return (best_d, key, ub), ub >= M_lb     # other cells could win
-
     def store(dst, src):
         """A body's results into the loop's tensors."""
         for d, x in zip(dst, src):
@@ -531,34 +507,34 @@ def extract_lines(points: torch.Tensor, valid: torch.Tensor,
 
     def vstate_update(vs, branch, m2, n_rem, active_next):
         """The JAX `lax.switch(branch, [keep, increment/subtract, rebuild])`
-        with each branch and lazy tier in a `run_if` node of its own, writing
-        the new state into `vs` in place: branch 0 keeps the state (the loop
-        is ending), 1 removes the n_rem points of m2 incrementally, 2
-        rebuilds it from active_next (more than sub_chunk points removed).
-        Only the branch taken issues its ops, kernels and the carry
-        compaction included."""
+        with each branch, and the lazy re-exam's overflow, in a `run_if` node
+        of its own, writing the new state into `vs` in place: branch 0 keeps
+        the state (the loop is ending), 1 removes the n_rem points of m2
+        incrementally, 2 rebuilds it from active_next (more than sub_chunk
+        points removed).  Only the branch taken issues its ops, kernels and
+        the carry compaction included."""
         inc, rebuild = branch == 1, branch == 2
 
-        def rebuild_state():
-            trace.tally(TALLIES[1])
+        def rebuild_state(tally=TALLIES[1]):
+            trace.tally(tally)
             store(vs, vstate_init(active_next))
 
         if lazy:
             def increment():
+                # each direction's best count less the removed points' votes
+                # in its best cell, in place (one kernel); then the directions
+                # whose bound could still reach the new maximum re-examined
+                # in place (one kernel: their count never leaves the card),
+                # or, past s_cap of them, the overflow flag (the last branch
+                # of the JAX tiered `lax.switch`)
                 trace.tally(TALLIES[0])
-                dec, suspect = decrement(vs, m2)
-                n_sus = suspect.sum()
-                # the tier (JAX `lax.switch(sel, [s_tier, s_cap, rebuild])`),
-                # every flag made before the first of its nodes
-                over = n_sus > s_cap
-                tiers = [(s_cap, ~over)]
-                if s_tier < s_cap:
-                    g_tier = n_sus <= s_tier
-                    tiers = [(s_tier, g_tier), (s_cap, ~over & ~g_tier)]
-                for cap, flag in tiers:
-                    run_if(flag, lambda cap=cap: store(
-                        vs, exam(dec, suspect, cap, active_next)))
-                run_if(over, lambda: store(vs, vstate_init(active_next)))
+                best, key, ub = vs
+                voting.vote_decrement(Xv, m2, c1, c2, half32, dx32, num_x, NX, key, best,
+                                      best)
+                m_lb = None if shard is None else shard.max(best.max())
+                run_if(voting.vote_reexam(Xv, active_next, c1, c2, half32, dx32, num_x, NX,
+                                          best, key, ub, s_cap, m_lb),
+                       lambda: rebuild_state(TALLIES[2]))
 
             run_if(inc, increment)
             run_if(rebuild, rebuild_state)

@@ -1,14 +1,14 @@
-"""The voting layer: vote bins, the lazy voting state and its decrement, and
-the vote histogram.
+"""The voting layer: vote bins, the lazy voting state, its decrement and its
+suspect re-exam, and the vote histogram.
 
 Each wrapper holds its CUDA launch (``csrc/voting.cu``) and its plain PyTorch
 version.  A tensor on the CPU takes the plain version; a CUDA tensor launches
 the kernel or raises.  There is no fallback from one to the other.  Each
 wrapper counts its kernel launches in a plain integer attribute
 (``vote_state.launches``, ``vote_histogram.launches``,
-``vote_decrement.launches``), so a run can show that it went through the
-kernels.  The gates kernel of ops/gates.py (``round_gates``) is counted here
-too, in `COUNTED`.
+``vote_decrement.launches``, ``vote_reexam.launches``), so a run can show
+that it went through the kernels.  The gates kernel of ops/gates.py
+(``round_gates``) is counted here too, in `COUNTED`.
 
 A wrapper's counts, two figures apart:
   * ``launches``: launches issued, those recorded into a CUDA graph counted
@@ -18,7 +18,8 @@ A wrapper's counts, two figures apart:
     voted.  Inside a conditional node of a graph (ops/hough.py `run_if`) a
     launch runs only when the node's flag holds, which only the card knows,
     so each launch adds one to a device counter of its own, beside the
-    kernel, in the graph too.
+    kernel, in the graph too (the re-exam's kernel adds to its own, and
+    to `reexamined_rows()`, the rows it re-examined).
 `reset_counts()` sets them to 0, the device counter in place (``captured``
 stays: it describes graphs already made).  The device counters of a card
 exist before a graph is captured on it (`prepare_counts`).
@@ -27,7 +28,8 @@ Shapes and types at every public function:
   Xs (N, 3) float32 shifted coordinates; active (N,) bool;
   c1, c2 (B, 3) float32 plane bases; half, dx 0-dim float32 tensors;
   num_x 0-dim int32 tensor; num_x_static a Python int (NX); the decrement's
-  removed (N,) bool and key, best (B,) int32.
+  removed (N,) bool and key, best (B,) int32; the re-exam's best, key, ub
+  (B,) int32, rewritten in place.
 
 The bins are float32 by spec in both compute types.  In the float64 parity
 mode the caller (ops/hough.py) hands every function here one contiguous
@@ -206,43 +208,63 @@ def pinned(device) -> torch.device:
     return device
 
 
+def _tables():
+    """Every device-counter table: each counted wrapper's launches, and the
+    rows the re-exam re-examined."""
+    return [fn.counts for fn in COUNTED] + [vote_reexam.rows]
+
+
 def prepare_counts(device) -> None:
-    """Every counted wrapper's device counter on `device`, made now if
-    missing: a counter made inside a capture would be the graph's, refilled
-    with 0 at every replay."""
+    """Every device counter on `device`, made now if missing: a counter made
+    inside a capture would be the graph's, refilled with 0 at every
+    replay."""
     device = pinned(device)
-    for fn in COUNTED:
-        if device not in fn.counts:
-            fn.counts[device] = torch.zeros((), dtype=torch.int64, device=device)
+    for table in _tables():
+        if device not in table:
+            table[device] = torch.zeros((), dtype=torch.int64, device=device)
 
 
-def _count(fn, device) -> None:
-    """One launch of fn's kernel on `device`, or one captured into a graph
-    (see the module's docstring): the device counter gains 1 when it runs."""
-    capturing = torch.cuda.is_current_stream_capturing()
-    counts = fn.counts.get(device)
+def _counter(fn, table, device) -> torch.Tensor:
+    """fn's device counter in `table` on `device`, made now outside a capture."""
+    counts = table.get(device)
     if counts is None:
-        if capturing:
+        if torch.cuda.is_current_stream_capturing():
             raise RuntimeError(f"{fn.__name__}: a launch captured on {device} before "
                                f"its counters were made; call prepare_counts first")
         prepare_counts(device)
-        counts = fn.counts[device]
-    counts.add_(1)
-    if capturing:
+        counts = table[device]
+    return counts
+
+
+def _count(fn, device, on_card: bool = False) -> None:
+    """One launch of fn's kernel on `device`, or one captured into a graph
+    (see the module's docstring): the device counter gains 1 when it runs,
+    from an add beside the launch, or from the kernel itself (`on_card`)."""
+    counts = _counter(fn, fn.counts, device)
+    if not on_card:
+        counts.add_(1)
+    if torch.cuda.is_current_stream_capturing():
         fn.captured += 1
     else:
         fn.launches += 1
 
 
-def ran_launches(fn) -> int:
-    """fn's launches that ran since the last `reset_counts()`.  Reads the
-    card (after a synchronise of each device counted on)."""
+def ran_launches(fn, table=None) -> int:
+    """fn's launches that ran since the last `reset_counts()` (or the sum of
+    another of its device-counter tables).  Reads the card (after a
+    synchronise of each device counted on)."""
     total = 0
-    for dev, t in fn.counts.items():
+    for dev, t in (fn.counts if table is None else table).items():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         total += int(t)
     return total
+
+
+def reexamined_rows() -> int:
+    """The rows the re-exam re-examined (ran) since the last `reset_counts()`.
+    Reads the card, as `ran_launches`."""
+    return ran_launches(vote_reexam, vote_reexam.rows)
 
 
 def reset_counts() -> None:
@@ -250,7 +272,8 @@ def reset_counts() -> None:
     place, so a captured graph goes on adding to them."""
     for fn in COUNTED:
         fn.launches = 0
-        for t in fn.counts.values():
+    for table in _tables():
+        for t in table.values():
             t.zero_()
 
 
@@ -311,31 +334,34 @@ vote_histogram.launches = vote_histogram.captured = 0
 vote_histogram.counts = {}
 
 
-def vote_decrement_plain(Xs, removed, c1, c2, half, dx, num_x, num_x_static, key, best):
+def vote_decrement_plain(Xs, removed, c1, c2, half, dx, num_x, num_x_static, key, best,
+                         out=None):
     n_rem = int(removed.sum())           # host read: the width
     keys_r = _removed_cell_keys(Xs, c1, c2, half, dx, num_x, removed, n_rem, n_rem,
                                 num_x_static)
-    return best - (keys_r == key[:, None]).sum(dim=1, dtype=torch.int32)
+    best_d = best - (keys_r == key[:, None]).sum(dim=1, dtype=torch.int32)
+    return best_d if out is None else out.copy_(best_d)
 
 
-def vote_decrement(Xs, removed, c1, c2, half, dx, num_x, num_x_static, key, best):
+def vote_decrement(Xs, removed, c1, c2, half, dx, num_x, num_x_static, key, best,
+                   out=None):
     """(B,) int32: each direction's best count less the votes the removed
     points cast in its best cell, the flat cell `key` (x*NX + y), as the
-    lazy increment of ops/hough.py and of the JAX package computes it."""
+    lazy increment of ops/hough.py and of the JAX package computes it.
+    Written into `out` when given, which may be `best` itself (in place)."""
     if not Xs.is_cuda:
         return vote_decrement_plain(Xs, removed, c1, c2, half, dx, num_x, num_x_static,
-                                    key, best)
+                                    key, best, out)
     from .._build import load_library
 
     _check_cuda_args(Xs, removed, c1, c2, half, dx, num_x, None)
     B, N = c1.shape[0], Xs.shape[0]
-    for name, t in (("key", key), ("best", best)):
-        if (t.device != Xs.device or t.dtype != torch.int32 or t.shape != (B,)
-                or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous ({B},) int32 tensor on {Xs.device}")
+    _check_rows(Xs, B, key=key, best=best)
     if not 1 <= num_x_static <= MAX_NX:
         raise ValueError(f"num_x_static={num_x_static} must lie in [1, {MAX_NX}]")
-    best_d = torch.empty_like(best)
+    if out is not None:
+        _check_rows(Xs, B, out=out)
+    best_d = torch.empty_like(best) if out is None else out
     half_dx, nx, stream = _launch_args(Xs, half, dx, num_x)
     err = load_library().pcs_vote_decrement(
         Xs.data_ptr(), removed.data_ptr(), N, c1.data_ptr(), c2.data_ptr(), B,
@@ -349,9 +375,76 @@ def vote_decrement(Xs, removed, c1, c2, half, dx, num_x, num_x_static, key, best
 vote_decrement.launches = vote_decrement.captured = 0
 vote_decrement.counts = {}
 
+
+def _check_rows(Xs, B, **rows) -> None:
+    """Each named tensor a contiguous (B,) int32 tensor on the points' card."""
+    for name, t in rows.items():
+        if (t.device != Xs.device or t.dtype != torch.int32 or t.shape != (B,)
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous ({B},) int32 tensor on {Xs.device}")
+
+
+def vote_reexam_plain(Xs, active, c1, c2, half, dx, num_x, num_x_static, best, key, ub,
+                      s_cap, m_lb=None):
+    suspect = ub >= (best.max() if m_lb is None else m_lb)
+    rows = torch.nonzero(suspect).flatten()          # host read: the count
+    over = rows.numel() > s_cap
+    if not over and rows.numel():
+        state = vote_state_plain(Xs, active, c1[rows].contiguous(), c2[rows].contiguous(),
+                                 half, dx, num_x, num_x_static)
+        for dst, src in zip((best, key, ub), state):
+            dst[rows] = src
+    return torch.tensor(over, device=best.device)
+
+
+def vote_reexam(Xs, active, c1, c2, half, dx, num_x, num_x_static, best, key, ub, s_cap,
+                m_lb=None):
+    """The lazy increment's suspect re-exam, in place.  (best, key, ub) are a
+    table's decremented state, (B,) int32 each; M_lb is the largest best
+    (or `m_lb`, a 0-dim int32 tensor: a sharded table's maximum over its
+    ranks).  Each direction with ub >= M_lb (a cell other than its key could
+    now hold the maximum) gets the (best, key, ub) that `vote_state` gives it
+    over the `active` points, written into its row; the others keep theirs.
+    More than `s_cap` such directions and no row changes.  Returns that
+    overflow as a 0-dim bool tensor (the caller then rebuilds the table):
+    the values of the JAX package's tiered `lax.switch` of the lazy
+    increment.  On the card the count of suspects never leaves it."""
+    if not Xs.is_cuda:
+        return vote_reexam_plain(Xs, active, c1, c2, half, dx, num_x, num_x_static,
+                                 best, key, ub, s_cap, m_lb)
+    from .._build import load_library
+
+    _check_cuda_args(Xs, active, c1, c2, half, dx, num_x, num_x_static)
+    B, N = c1.shape[0], Xs.shape[0]
+    _check_rows(Xs, B, best=best, key=key, ub=ub)
+    if not 1 <= s_cap <= B:
+        raise ValueError(f"s_cap={s_cap} must lie in [1, {B}]")
+    if m_lb is not None and (m_lb.device != Xs.device or m_lb.dtype != torch.int32
+                             or m_lb.numel() != 1):
+        raise ValueError(f"m_lb must be one int32 value on {Xs.device}")
+    dev = pinned(Xs.device)
+    listed = torch.empty(s_cap + 1, dtype=torch.int32, device=Xs.device)
+    over = torch.empty((), dtype=torch.bool, device=Xs.device)
+    ran = _counter(vote_reexam, vote_reexam.counts, dev)
+    rows_ran = _counter(vote_reexam, vote_reexam.rows, dev)
+    half_dx, nx, stream = _launch_args(Xs, half, dx, num_x)
+    err = load_library().pcs_vote_reexam(
+        Xs.data_ptr(), active.data_ptr(), N, c1.data_ptr(), c2.data_ptr(), B,
+        half_dx.data_ptr(), nx.data_ptr(), num_x_static, best.data_ptr(), key.data_ptr(),
+        ub.data_ptr(), None if m_lb is None else m_lb.contiguous().data_ptr(), s_cap,
+        listed.data_ptr(), over.data_ptr(), ran.data_ptr(), rows_ran.data_ptr(), stream)
+    _raise_on(err, "vote_reexam")
+    _count(vote_reexam, dev, on_card=True)
+    return over
+
+
+vote_reexam.launches = vote_reexam.captured = 0
+vote_reexam.counts = {}
+vote_reexam.rows = {}       # device -> 0-dim int64: the rows re-examined
+
 # the wrappers whose launches are counted: the voting kernels' and a Hough
 # round's gates kernel (ops/gates.py)
-COUNTED = (vote_state, vote_histogram, vote_decrement, round_gates)
+COUNTED = (vote_state, vote_histogram, vote_decrement, vote_reexam, round_gates)
 
 
 def vote_bins_kernel(Xs, c1, c2, half, dx, num_x):

@@ -546,6 +546,7 @@ def _counters(buf: _Buffers) -> dict:
     if V is not None:
         for fn in V.COUNTED:
             out[f"{fn.__name__}.ran_launches"] = V.ran_launches(fn)
+        out["vote_reexam.rows"] = V.reexamined_rows()
     H = sys.modules.get(__package__ + ".ops.hough")
     if H is not None:
         for name in H.TALLIES:           # 0 where no frame ran the branch

@@ -6,8 +6,9 @@ On the CPU, `extract_lines` runs the very bodies a graph captures, each
 replay.  It is held in carry and lazy mode over every branch of the loop
 against the JAX package's `extract_lines` (integers exact, endpoints within
 5e-3, README §Precision contract) and against each case's status, line
-count and rounds, absolute numbers; over every lazy suspect tier against
-the tiers' expected voting calls and against carry voting.  The
+count and rounds, absolute numbers; over the lazy re-exam, with and without
+its overflow into a rebuild, against its suspects and against carry
+voting.  The
 fixed-width compaction is held against the JAX one column for column.
 `make_process_frame_packed` runs eagerly here and is held against the JAX
 step over a short replay with a NaN frame in it: scalars exact, world
@@ -246,28 +247,64 @@ def suspect_scene(seed):
     return np.concatenate(clouds).astype(np.float32)
 
 
+class Reexams:
+    """A lazy re-exam (`vote_reexam`) held to its inputs at each call: the
+    rows it rewrites are the suspects (ub at or above the largest decremented
+    best), each as `vote_state` gives it over the active points, and every
+    other row stays; past the cap no row changes and the overflow flag is
+    set.  Appends ("reexam", suspects, overflow) to `log`, which a `Calls` of
+    vote_state may share, so that a rebuild's place shows."""
+
+    def __init__(self, fn, log):
+        self.fn, self.log = fn, log
+
+    def __call__(self, Xs, active, c1, c2, half, dx, num_x, nxs, best, key, ub, s_cap,
+                 m_lb=None):
+        want = [t.clone() for t in (best, key, ub)]
+        rows = torch.nonzero(ub >= (best.max() if m_lb is None else m_lb)).flatten()
+        over = self.fn(Xs, active, c1, c2, half, dx, num_x, nxs, best, key, ub, s_cap, m_lb)
+        if 0 < rows.numel() <= s_cap:
+            state = V.vote_state_plain(Xs, active, c1[rows].contiguous(),
+                                       c2[rows].contiguous(), half, dx, num_x, nxs)
+            for w, r in zip(want, state):
+                w[rows] = r
+        assert bool(over) == (rows.numel() > s_cap)
+        for got, w in zip((best, key, ub), want):
+            assert torch.equal(got, w)
+        self.log.append(("reexam", rows.numel(), bool(over)))
+        return over
+
+
 @pytest.mark.parametrize("cap", [128, 2048])
 def test_every_suspect_tier_graph_equals_eager(cap, monkeypatch):
     """Lazy mode at g4 (1,408 directions after padding), the suspect
-    capacity as shipped (2048: tiers of 256 and 1,408 rows, then the
-    rebuild) and monkeypatched to 128 as test_suspect_overflow_takes_the_rebuild
-    does (one 128-row tier, then the rebuild).  These scenes' rounds have
-    either no suspect or all 1,408, so at 2048 the 256-row tier and the
-    1,408-row tier are taken, and at 128 the 128-row tier and the rebuild.
-    In every scene the loop's first vote_state call is the whole table, the
-    tiers its calls take are those, and its lines equal carry's."""
+    capacity as shipped (2048, the whole table: every suspect count is
+    re-examined) and monkeypatched to 128 as
+    test_suspect_overflow_takes_the_rebuild does (one tile, then the
+    rebuild).  These scenes' increment rounds have either no suspect or all
+    1,408.  In every scene the loop's first vote_state call is the whole
+    table, each re-exam rewrites exactly its suspects' rows up to the cap
+    (`Reexams`), an overflow is followed by the whole table's rebuild and by
+    no other vote_state call (the gathered tiers are gone), the suspect
+    counts and overflows seen are those, and the lines equal carry's."""
     monkeypatch.setattr(TH, "_SUSPECT_CAP", cap)
     cfg = default_config(granularity=4, opt_nlines=8, opt_minvotes=10, min_pca_coeff=0.8,
                          shapes=StaticShapes(max_raw_points=4096, max_points=2048))
-    want = {128: {128, "table"}, 2048: {256, 1408}}[cap]
+    want = {128: {(0, False), (1408, True)}, 2048: {(0, False), (1408, False)}}[cap]
     seen = set()
     for seed in SUSPECT_SCENES:
         p, v = torch_inputs(suspect_scene(seed), cfg)
         st = Calls(V.vote_state)
+        rx = Reexams(V.vote_reexam, st.calls)
         rl = TH.extract_lines(p, v, cfg.replace(voting="lazy"),
-                              voting=TH.Voting(st, V.vote_histogram))
-        assert st.calls[0] == "table"
-        seen |= set(st.calls[1:])
+                              voting=TH.Voting(st, V.vote_histogram, vote_reexam=rx))
+        calls = st.calls
+        assert calls[0] == "table"
+        assert all(c == "table" or c[0] == "reexam" for c in calls), calls
+        for k, c in enumerate(calls):
+            if c != "table" and c[2]:
+                assert calls[k + 1] == "table"
+        seen |= {c[1:] for c in calls if c != "table"}
         assert_bit_equal(rl, TH.extract_lines(p, v, cfg.replace(voting="carry")))
     assert seen == want, (want, seen)
 

@@ -214,8 +214,48 @@ def test_the_update_tallies_are_the_branches_the_eager_loop_read(voting, monkeyp
         assert i + r == f["live_rounds"] - 1
         votes = [k for k in f["stamps"] if k.endswith("].vote.begin")]
         assert len(votes) == f["live_rounds"]
+    # no lazy re-exam overflows at g2, whose whole table is the suspect cap:
+    # that tally is exported as 0 and has no per-frame event
+    assert c["hough.suspect_overflow_rounds"] == 0
     assert {e["name"] for e in out["traceEvents"] if e["ph"] == "C"} == {
-        "hough.live_rounds", *H.TALLIES}
+        "hough.live_rounds", *H.TALLIES[:2]}
+
+
+def test_the_overflow_tally_is_the_re_exams_that_overflowed(monkeypatch):
+    """Lazy voting at g4 with a suspect cap of one tile (128 of 1,408
+    directions): each frame's ``hough.suspect_overflow_rounds`` is the number
+    of its re-exams that returned the overflow, some frame has one, and
+    every overflow rebuilt the table (one more whole-table vote_state call
+    than the frame's rebuild rounds and its init)."""
+    monkeypatch.setattr(H, "_SUSPECT_CAP", 128)
+    frames = small_frames(3)
+    cfg = small_cfg(granularity=4, voting="lazy")
+    counted = CountedVoting(monkeypatch)
+    overs = []
+    reexam = V.vote_reexam_plain
+
+    def recorded(*a):
+        over = reexam(*a)
+        overs.append(bool(over))
+        return over
+
+    monkeypatch.setattr(V, "vote_reexam_plain", recorded)
+    trace.enable()
+    eng = SegmentationEngine(cfg, device="cpu", loop="cond")
+    want = []
+    for fr in frames:
+        counted.clear()
+        overs.clear()
+        run(eng, [fr])
+        inc, whole = counted.branches(cfg, cfg.shapes.max_points)
+        assert len(overs) == inc
+        want.append((sum(overs), whole))
+    out = trace.export()
+    got = [f["tallies"].get("hough.suspect_overflow_rounds", 0) for f in out["frames"]]
+    assert got == [n for n, _ in want] and sum(got) > 0
+    rebuilds = [f["tallies"].get("hough.rebuild_rounds", 0) for f in out["frames"]]
+    assert [w for _, w in want] == [n + r for n, r in zip(got, rebuilds)]
+    assert out["counters"]["hough.suspect_overflow_rounds"] == sum(got)
 
 
 def test_a_frame_with_no_update_exports_its_tallies_as_zero():
@@ -467,7 +507,9 @@ def test_a_traced_capture_stamps_in_order_and_times_the_replay(cuda):
     frame.end less frame.begin is within 2% of CUDA events around the
     replay; the rounds stamped are the rounds that ran, by the voting
     wrappers' device counters (one launch a live round: the init, then
-    each round but the last)."""
+    each round but the last its re-exam or rebuild; a re-exam that
+    overflowed also launched the rebuild, which the overflow tally
+    counts)."""
     frames = small_frames(12, width=64)
     trace.enable()
     eng = SegmentationEngine(g6_small(), device=cuda)
@@ -489,8 +531,10 @@ def test_a_traced_capture_stamps_in_order_and_times_the_replay(cuda):
     trace.enable()                          # only the timed frames
     run(eng, frames[1:])
     torch.cuda.synchronize()
-    ran = V.ran_launches(V.vote_state) + V.ran_launches(V.vote_histogram)
+    ran = (V.ran_launches(V.vote_state) + V.ran_launches(V.vote_histogram)
+           + V.ran_launches(V.vote_reexam))
     out = trace.export()
+    ran -= out["counters"]["hough.suspect_overflow_rounds"]
     fr = out["frames"]
     assert len(fr) == len(events) == len(frames) - 1
     names = cap.ring.names
