@@ -674,6 +674,160 @@ def reexam_phase(dev, frames, card, sh):
               flush=True)
 
 
+TOF224 = (224, 172)          # the drone's own ToF, 38,528 returns a frame
+
+
+def voxel_problem(points, cfg, dev, dtype):
+    """The voxel sums' inputs from one frame padded to max_raw_points: the
+    sorted keys, the points in their order and the key limit."""
+    from pointcloud_segmentation_tpu_torch.ops.preproc import (_grid_constants, voxel_keys,
+                                                               window_mask)
+
+    raw = np.full((cfg.shapes.max_raw_points, 3), np.nan)
+    raw[: len(points)] = points
+    pts = torch.from_numpy(raw).to(dev, dtype)
+    keys = voxel_keys(pts, window_mask(pts, cfg.window_size), cfg)
+    keys_s, order = torch.sort(keys, stable=True)
+    return keys_s, pts[order].contiguous(), _grid_constants(cfg)[2] ** 3
+
+
+def onehot_sums(keys_s, pts_s, n_out, key_limit):
+    """The voxel sums as the port made them before pcs_voxel_sums: a dense
+    (n_out, N) one-hot product (timed as the yardstick, never on a path)."""
+    valid_s = keys_s < key_limit
+    isnew = torch.ones_like(valid_s)
+    isnew[1:] = keys_s[1:] != keys_s[:-1]
+    first = isnew & valid_s
+    group = torch.where(valid_s, torch.cumsum(first.int(), 0, dtype=torch.int32) - 1, n_out)
+    onehot = (group[None, :] == torch.arange(n_out, dtype=torch.int32,
+                                             device=keys_s.device)[:, None]).to(pts_s.dtype)
+    pts = torch.where(valid_s[:, None], pts_s, 0.0)
+    return onehot @ pts, onehot.sum(dim=1)
+
+
+def voxel_phase(dev, frames64, frames224, card):
+    """pcs_voxel_sums against its plain version (on the host) on every frame
+    of the 64x64 replay at (4,096 x 8,192) and of the 224x172 flight at
+    (8,192 x 38,528), float32, and on 4 frames of each in float64: bit for
+    bit, the dropped voxels counted; then timed at the frame of most voxels
+    beside its bound (benchmark/roofline/voxel.py), its plain version and
+    the one-hot product it replaced."""
+    from pointcloud_segmentation_tpu_torch.config import StaticShapes, default_config
+    from pointcloud_segmentation_tpu_torch.ops import preproc as P
+
+    from benchmark.roofline import voxel as roofline_voxel
+
+    for label, frames, (n_raw, n_out) in (("64x64", frames64, (8192, 4096)),
+                                          ("224x172", frames224, (38_528, 8192))):
+        cfg = default_config(shapes=StaticShapes(max_raw_points=n_raw, max_points=n_out))
+        bad, counts = [], []
+        for k, fr in enumerate(frames):
+            for dtype in (torch.float32, torch.float64) if k % 8 == 0 else (torch.float32,):
+                keys_s, pts_s, lim = voxel_problem(fr.points, cfg, dev, dtype)
+                got = P.voxel_sums(keys_s, pts_s, n_out, lim)
+                *want, over = P.voxel_sums_plain(keys_s.cpu(), pts_s.cpu(), n_out, lim)
+                if over or not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+                    bad.append((k, str(dtype)))
+                if dtype == torch.float32:
+                    counts.append(int(want[2]))
+        check(not bad, f"voxel_sums == plain on every {label} frame ({len(frames)} frames, "
+                       f"({n_out:,} x {n_raw:,}), voxels {min(counts)}-{max(counts)}, "
+                       f"float32 and float64 on every 8th): centroids, valid and count "
+                       f"bit for bit, none dropped (frames that differ {bad})")
+        fr = frames[max(range(len(frames)), key=counts.__getitem__)]
+        keys_s, pts_s, lim = voxel_problem(fr.points, cfg, dev, torch.float32)
+        ms = graph_ms(lambda: P.voxel_sums(keys_s, pts_s, n_out, lim))
+        plain_ms = event_ms(lambda: P.voxel_sums_plain(keys_s, pts_s, n_out, lim), 3)
+        onehot_ms = event_ms(lambda: onehot_sums(keys_s, pts_s, n_out, lim), 3)
+        b_ms = roofline_voxel.least_seconds(n_raw, n_out) * 1e3
+        print(f"time  voxel_sums, {label} frame of {max(counts)} voxels ({n_out:,} x "
+              f"{n_raw:,}): kernel {ms:.4f} ms (two launches, in a graph), bound "
+              f"{b_ms:.5f} ms (bytes, {b_ms / ms:.1%} of it), plain {plain_ms:.4f} ms, "
+              f"the one-hot product it replaced {onehot_ms:.4f} ms [{card}]", flush=True)
+    keys_s, pts_s, lim = voxel_problem(frames224[0].points, cfg, dev, torch.float32)
+    V0 = P.voxel_overflow()
+    P.voxel_sums(keys_s, pts_s, 64, lim)
+    *_, over = P.voxel_sums_plain(keys_s.cpu(), pts_s.cpu(), 64, lim)
+    check(P.voxel_overflow() - V0 == over > 0,
+          f"voxel_sums at 64 voxels drops {over} and counts them on the card")
+
+
+def tof224_phase(dev, frames224, card):
+    """The 7-beam flight seen by the 224x172 sensor, sized by the
+    configuration's keys (max_raw_points 38,528, max_points 8,192): the
+    lazy voting and gates kernels against their plain versions on every
+    call of a host-driven replay; the captured frame against the
+    host-driven engine frame by frame; no cloud cut, no voxel dropped; the
+    graph's nodes and ms/frame."""
+    from pointcloud_segmentation_tpu_torch import SegmentationEngine
+    from pointcloud_segmentation_tpu_torch.config import PipelineConfig
+    from pointcloud_segmentation_tpu_torch.ops import gates as G
+    from pointcloud_segmentation_tpu_torch.ops import voting as V
+    from pointcloud_segmentation_tpu_torch.ops.hough import Voting
+    from pointcloud_segmentation_tpu_torch.ops.preproc import voxel_overflow
+
+    cfg = PipelineConfig.from_dict({"max_raw_points": 38_528, "max_points": 8192})
+    calls = {"state": [], "decrement": [], "reexam": [], "gates": []}
+
+    def recorder(name, fn):
+        def record(*args):
+            calls[name].append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+            return fn(*args)
+        return record
+
+    voting = Voting(recorder("state", V.vote_state), V.vote_histogram,
+                    recorder("decrement", V.vote_decrement), recorder("gates", G.round_gates),
+                    recorder("reexam", V.vote_reexam))
+    V.reset_counts()
+    eager = SegmentationEngine(cfg, dev, voting=voting, loop="eager")
+    eager.run_replay(frames224)
+    active = [int(a[1].sum()) for a in calls["state"]]
+    bad = {name: [] for name in calls}
+    for k, args in enumerate(calls["state"]):
+        if not all(torch.equal(x, y) for x, y in zip(V.vote_state(*args),
+                                                      V.vote_state_plain(*args))):
+            bad["state"].append(k)
+    for k, args in enumerate(calls["decrement"]):
+        if not torch.equal(V.vote_decrement(*args[:10]), V.vote_decrement_plain(*args[:10])):
+            bad["decrement"].append(k)
+    for k, args in enumerate(calls["reexam"]):
+        X, a, c1, c2, half, dx, nx, NX, best, key, ub, s_cap, m_lb = args
+        outs = []
+        for fn in (V.vote_reexam, V.vote_reexam_plain):
+            state = [t.clone() for t in (best, key, ub)]
+            outs.append(state + [fn(X, a, c1, c2, half, dx, nx, NX, *state, s_cap, m_lb)])
+        if not all(torch.equal(x, y) for x, y in zip(*outs)):
+            bad["reexam"].append(k)
+    worst = 0.0
+    for k, args in enumerate(calls["gates"]):
+        got, want = G.round_gates(*args), G.round_gates_plain(*args)
+        exact, gap = gates_gap(got, want)
+        if not exact:
+            bad["gates"].append(k)
+        if bool(want.ok3):                 # a round that found a line
+            worst = max(worst, gap)
+    check(not any(bad.values()) and worst <= 5e-3 and max(active) > 4096,
+          f"224x172 flight ({len(frames224)} frames): vote_state ({len(calls['state'])} calls, "
+          f"{min(active)}-{max(active)} active of 8,192), vote_decrement "
+          f"({len(calls['decrement'])}), vote_reexam ({len(calls['reexam'])}) == plain bit for "
+          f"bit, round_gates ({len(calls['gates'])}) flags exact, floats within 5e-3 (largest "
+          f"{worst:.3g}); calls that differ {bad}")
+    check(eager.raw_truncated == 0 and voxel_overflow() == 0,
+          "224x172 flight: no cloud cut (engine.raw_truncated 0), no voxel dropped "
+          "(preproc.voxel_overflow 0)")
+    lockstep_loops("224x172 flight", cfg, frames224, dev)
+    ms, engs = {}, {}
+    for loop in ("cond", "eager"):
+        engs[loop] = SegmentationEngine(cfg, dev, loop=loop)
+        ms[loop] = statistics.median(r["processing_time"] / 1e3
+                                     for r in engs[loop].run_replay(frames224))
+    cap = engs["cond"]._step.captures[0]
+    print(f"time  224x172 flight, {len(frames224)} frames, median ms/frame: cond step "
+          f"{ms['cond']:.3f}, host-driven {ms['eager']:.3f}; captured frame "
+          f"{cap['graph_nodes']} nodes, {cap['cond_nodes']} conditional, pool "
+          f"{cap['pool_bytes']} B [{card}]", flush=True)
+
+
 SHARD_LABEL = "a direction shard, {gran}, 1 of {n}"
 
 
@@ -3018,6 +3172,9 @@ def main() -> None:
     ap.add_argument("--graph-only", action="store_true",
                     help="the kernel checks and the captured frame (cond) against "
                          "the host-driven engine only; prints no result lines")
+    ap.add_argument("--tof224-only", action="store_true",
+                    help="the voxel kernel's checks and the 224x172 flight's phase only; "
+                         "prints no result lines")
     ap.add_argument("--ranks-only", action="store_true",
                     help="as --shard-only without the deferred phases: on a host "
                          "with 2 or 4 cards the ranks' collectives run over NCCL")
@@ -3068,6 +3225,13 @@ def main() -> None:
 
     cfg6 = default_config()
     cfg4 = default_config(granularity=4)
+    frames224 = frames_of(OBS_TESTS_SCENE, poses, TofSpec(width=TOF224[0], height=TOF224[1],
+                                                          noise_frac=0.01), 1)
+    if args.tof224_only:
+        voxel_phase(dev, frames, frames224, card)
+        tof224_phase(dev, frames224, card)
+        print("one stack only: no result lines", flush=True)
+        sys.exit(3)
     if args.parity_only or args.sensor_only:
         k6, _ = counted_run("g6 replay", cfg6, frames, dev, "vote_state")
         stack = parity_stack if args.parity_only else sensor_stack
@@ -3134,13 +3298,13 @@ def main() -> None:
     oracle_pool, oracle6 = start_oracle(dataclasses.replace(cfg6, compute_dtype="float64"),
                                         frames[G6_PARITY_FRAMES])
     try:
-        whole_run(cfg6, cfg4, frames, dev, card, earlier, oracle6)
+        whole_run(cfg6, cfg4, frames, frames224, dev, card, earlier, oracle6)
     finally:
         oracle_pool.terminate()
         oracle_pool.join()
 
 
-def whole_run(cfg6, cfg4, frames, dev, card, earlier, oracle6):
+def whole_run(cfg6, cfg4, frames, frames224, dev, card, earlier, oracle6):
     """Every phase, then the result lines.  oracle6: the float64 g6 oracle's
     run of the parity frames, coming from a process of its own."""
     from pointcloud_segmentation_tpu_torch.config import default_config
@@ -3149,6 +3313,8 @@ def whole_run(cfg6, cfg4, frames, dev, card, earlier, oracle6):
     sh = kernel_checks(dev, frames[len(frames) // 2], card, earlier)
     gates_phase(dev, frames, card, sh)
     reexam_phase(dev, frames, card, sh)
+    voxel_phase(dev, frames, frames224, card)
+    tof224_phase(dev, frames224, card)
     golden_checks(dev)
 
     cfg6s = default_config(radius_sizes=(0.015,))

@@ -1,17 +1,17 @@
 """Builds the CUDA sources under ``csrc/`` with nvcc and loads them with ctypes.
 
-One library, from four sources in one nvcc call: ``voting.cu`` (the voting
-kernels), ``gates.cu`` (a Hough round's gates, ops/gates.py),
-``graph_cond.cu`` (the conditional nodes of the captured frame, ops/hough.py
-`run_if`) and ``trace.cu`` (the tracer's device stamps and tallies,
-trace.py).  It has a plain C interface (no PyTorch headers), so nvcc builds
-it in seconds.  It is built at first use into
-``build/torch_kernels/`` beside the package, keyed by a hash of the sources
-and the flags, so unchanged sources are built once per checkout.  Nothing
-here runs at import time.  One lock serialises the build and the load, so
-two threads that launch a kernel at once build it once (the engine loads it
-in its constructor, on the caller's thread, before a streaming worker
-starts).
+One library, from five sources in one nvcc call: ``voting.cu`` (the voting
+kernels), ``gates.cu`` (a Hough round's gates, ops/gates.py), ``voxel.cu``
+(the voxel grid's sums, ops/preproc.py), ``graph_cond.cu`` (the
+conditional nodes of the captured frame, ops/hough.py `run_if`) and
+``trace.cu`` (the tracer's device stamps and tallies, trace.py).  It has a
+plain C interface (no PyTorch headers), so nvcc builds it in seconds.  It
+is built at first use into ``build/torch_kernels/`` beside the package,
+keyed by a hash of the sources and the flags, so unchanged sources are
+built once per checkout.  Nothing here runs at import time.  One lock
+serialises the build and the load, so two threads that launch a kernel at
+once build it once (the engine loads it in its constructor, on the
+caller's thread, before a streaming worker starts).
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCE = _CSRC / "voting.cu"
 _GATES = _CSRC / "gates.cu"
+_VOXEL = _CSRC / "voxel.cu"
 _GRAPH_COND = _CSRC / "graph_cond.cu"
 _TRACE = _CSRC / "trace.cu"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
@@ -62,6 +63,9 @@ _SIGNATURES = {
     # m2, nv, flags, out, stream
     "pcs_round_gates": (_I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                         _P, _I, ctypes.c_double, ctypes.c_double, _I, _P, _P, _P, _P, _P, _P),
+    # is64, keys, pts, n, key_limit, n_out, tile_starts, centroids, valid, count,
+    # dropped, ran, stream
+    "pcs_voxel_sums": (_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     # stream, flag (one byte on the card), body stream
     "pcs_if_begin": (_P, _P, _P),
     # body stream
@@ -113,7 +117,7 @@ def load_library(source: Path = _SOURCE) -> ctypes.CDLL:
     """Build (if needed) and load the library; raises on failure.  `source`
     may name another copy of ``voting.cu`` with the same C entries, such as
     an earlier version to time beside this one (built with this
-    ``gates.cu``, ``graph_cond.cu`` and ``trace.cu``)."""
+    ``gates.cu``, ``voxel.cu``, ``graph_cond.cu`` and ``trace.cu``)."""
     with _lock:
         lib = _loaded.get(source)
         if lib is None:
@@ -122,7 +126,7 @@ def load_library(source: Path = _SOURCE) -> ctypes.CDLL:
 
 
 def _build_and_load(source: Path) -> ctypes.CDLL:
-    sources = (source, _GATES, _GRAPH_COND, _TRACE)
+    sources = (source, _GATES, _VOXEL, _GRAPH_COND, _TRACE)
     path = _library_path(sources)
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -351,6 +351,7 @@ def cmd_inspect(args) -> int:
     from .io.scene import trajectory_poses
     from .io.simulator import TofSpec, simulate_trajectory
     from .ops import voting as V
+    from .ops.preproc import voxel_overflow
     from .runtime import SegmentationEngine
 
     cfg = _build_cfg(args)
@@ -400,6 +401,7 @@ def cmd_inspect(args) -> int:
         "granularity": cfg.granularity,
         "num_directions": cfg.num_directions,
         "num_x_max": cfg.num_x_max,
+        "max_raw_points": cfg.shapes.max_raw_points,
         "max_points": cfg.shapes.max_points,
         "max_world_segments": cfg.shapes.max_world_segments,
         "frame": INSPECT_FRAME,
@@ -420,6 +422,7 @@ def cmd_inspect(args) -> int:
         for fn in V.COUNTED:
             info[f"{fn.__name__}_launches"] = fn.launches
             info[f"{fn.__name__}_launches_ran"] = V.ran_launches(fn)
+        info["voxel_overflow"] = voxel_overflow()
     print(json.dumps({k: v for k, v in info.items() if v is not None}, indent=2))
     return 0
 

@@ -31,6 +31,10 @@ _YAML_KEYS = ("verbose_level", "path_to_output", "floor_trim_height",
               "min_pca_coeff", "min_weight", "rad_2_leaf_ratio",
               "opt_minvotes", "granularity", "opt_nlines")
 
+# keys beyond the reference's schema that size `StaticShapes`: a sensor
+# larger than the shipped 64x64 needs a raw buffer of its pixel count
+_SHAPE_KEYS = ("max_raw_points", "max_points")
+
 
 @dataclasses.dataclass(frozen=True)
 class StaticShapes:
@@ -159,6 +163,9 @@ class PipelineConfig:
             kw["radius_sizes"] = tuple(float(r) for r in raw["radius_sizes"])
         if "compute_dtype" in raw:      # beyond the reference: the parity mode
             kw["compute_dtype"] = str(raw["compute_dtype"])
+        caps = {key: int(raw[key]) for key in _SHAPE_KEYS if key in raw}
+        if caps:                        # beyond the reference: the capacities
+            kw["shapes"] = StaticShapes(**caps)
         kw.update(overrides)
         return cls(**kw)
 

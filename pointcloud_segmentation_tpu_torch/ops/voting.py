@@ -8,7 +8,8 @@ wrapper counts its kernel launches in a plain integer attribute
 (``vote_state.launches``, ``vote_histogram.launches``,
 ``vote_decrement.launches``, ``vote_reexam.launches``), so a run can show
 that it went through the kernels.  The gates kernel of ops/gates.py
-(``round_gates``) is counted here too, in `COUNTED`.
+(``round_gates``) and the voxel grid's of ops/preproc.py (``voxel_sums``)
+are counted here too, in `COUNTED`.
 
 A wrapper's counts, two figures apart:
   * ``launches``: launches issued, those recorded into a CUDA graph counted
@@ -43,6 +44,7 @@ from __future__ import annotations
 import torch
 
 from .gates import round_gates
+from .preproc import voxel_sums
 
 _TILE = 128                # directions per tile of the plain versions
 
@@ -209,9 +211,9 @@ def pinned(device) -> torch.device:
 
 
 def _tables():
-    """Every device-counter table: each counted wrapper's launches, and the
-    rows the re-exam re-examined."""
-    return [fn.counts for fn in COUNTED] + [vote_reexam.rows]
+    """Every device-counter table: each counted wrapper's launches, the rows
+    the re-exam re-examined and the voxels the voxel grid dropped."""
+    return [fn.counts for fn in COUNTED] + [vote_reexam.rows, voxel_sums.dropped]
 
 
 def prepare_counts(device) -> None:
@@ -442,9 +444,9 @@ vote_reexam.launches = vote_reexam.captured = 0
 vote_reexam.counts = {}
 vote_reexam.rows = {}       # device -> 0-dim int64: the rows re-examined
 
-# the wrappers whose launches are counted: the voting kernels' and a Hough
-# round's gates kernel (ops/gates.py)
-COUNTED = (vote_state, vote_histogram, vote_decrement, vote_reexam, round_gates)
+# the wrappers whose launches are counted: the voting kernels', a Hough
+# round's gates kernel (ops/gates.py) and the voxel grid's (ops/preproc.py)
+COUNTED = (vote_state, vote_histogram, vote_decrement, vote_reexam, round_gates, voxel_sums)
 
 
 def vote_bins_kernel(Xs, c1, c2, half, dx, num_x):

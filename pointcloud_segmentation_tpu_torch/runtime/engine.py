@@ -248,7 +248,8 @@ class SegmentationEngine:
             # built and loaded here, on the caller's thread: the first frame
             # of a stream runs on the worker, which would otherwise run nvcc
             _build.load_library()
-            # the voxel-grid sums are a float32 matrix product (ops/preproc.py)
+            # no float32 matrix product of the port may run in TF32
+            # (README §Precision contract)
             torch.backends.cuda.matmul.allow_tf32 = False
         self.cfg = cfg
         self.voting = voting
@@ -261,6 +262,7 @@ class SegmentationEngine:
         self.frames_failed = 0          # streaming frames that raised
         self.world_overflow_frames = 0  # frames that dropped segments at
                                         # max_world_segments capacity (D-CAP)
+        self.raw_truncated = 0          # clouds cut to max_raw_points
         self.collect_inlier_points = collect_inlier_points
         self.checkpoint_every = checkpoint_every
         self.checkpoint_path = checkpoint_path
@@ -375,18 +377,29 @@ class SegmentationEngine:
     def trace_counters(self) -> dict:
         """The counts trace.export() reports: the mailbox's own."""
         return {"runtime.submitted": self.frames_submitted,
-                "runtime.dropped": self.dropped_frames}
+                "runtime.dropped": self.dropped_frames,
+                "engine.raw_truncated": self.raw_truncated}
 
     # ---------------------------------------------------------------- core
 
     def _pad_raw_host(self, points: np.ndarray) -> np.ndarray:
-        """(max_raw_points, 3) in the compute type, NaN rows past the cloud."""
+        """(max_raw_points, 3) in the compute type, NaN rows past the cloud.
+        A larger cloud keeps its first max_raw_points rows; each such frame
+        counts in `raw_truncated`, and the first one is logged."""
         with trace.span("engine.pad"):
             n_raw = self.cfg.shapes.max_raw_points
             pts = np.asarray(points, dtype=self._npdt).reshape(-1, 3)
             out = np.full((n_raw, 3), np.nan, dtype=self._npdt)
             k = min(len(pts), n_raw)
             out[:k] = pts[:k]
+            if len(pts) > n_raw:
+                self.raw_truncated += 1
+                if self.raw_truncated == 1:
+                    logger.warning(
+                        "cloud of %d points cut to max_raw_points=%d: the map "
+                        "leaves out the rest (set max_raw_points to the sensor's "
+                        "pixel count); later cuts are counted in raw_truncated",
+                        len(pts), n_raw)
             return out
 
     def _pad_raw(self, points: np.ndarray) -> torch.Tensor:

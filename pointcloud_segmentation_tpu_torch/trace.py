@@ -41,13 +41,14 @@ of each of its tallies, and beside ``traceEvents`` the clock block, the
 frames' stamps on host ns and tallies, and the counters (a tally's is its
 sum over the frames).  `write(path)` writes the same dict.
 
-The stages of a frame (slot order): ``frame.begin``, ``preproc.end``,
-``hough.init.end``, for each round r that runs ``round[r].begin``,
-``round[r].gates.end``, ``round[r].vote.begin`` (the segment write ends and
-the voting state's update begins) and ``round[r].end``, then ``segments.end``,
-``world.end`` and ``frame.end``.  A stage ``X`` is the interval that ends
-at ``X.end``: from ``X.begin`` where there is one, else from the stamp
-before it.
+The stages of a frame (slot order): ``frame.begin``, ``preproc.begin``,
+``preproc.sorted`` (the voxel keys' sort ends and the voxel sums begin),
+``preproc.end``, ``hough.init.end``, for each round r that runs
+``round[r].begin``, ``round[r].gates.end``, ``round[r].vote.begin`` (the
+segment write ends and the voting state's update begins) and
+``round[r].end``, then ``segments.end``, ``world.end`` and ``frame.end``.
+A stage ``X`` is the interval that ends at ``X.end``: from ``X.begin``
+where there is one, else from the stamp before it.
 """
 
 from __future__ import annotations
@@ -547,6 +548,9 @@ def _counters(buf: _Buffers) -> dict:
         for fn in V.COUNTED:
             out[f"{fn.__name__}.ran_launches"] = V.ran_launches(fn)
         out["vote_reexam.rows"] = V.reexamined_rows()
+    P = sys.modules.get(__package__ + ".ops.preproc")
+    if P is not None:
+        out["preproc.voxel_overflow"] = P.voxel_overflow()
     H = sys.modules.get(__package__ + ".ops.hough")
     if H is not None:
         for name in H.TALLIES:           # 0 where no frame ran the branch

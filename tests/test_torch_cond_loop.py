@@ -151,8 +151,8 @@ def test_launch_counts_issued_captured_and_ran(monkeypatch):
 
 
 def test_the_library_is_built_from_both_sources_in_one_nvcc_call(monkeypatch, tmp_path):
-    """One nvcc call compiles voting.cu, gates.cu, graph_cond.cu and trace.cu
-    into one library, named by a hash of the sources and the flags: another
+    """One nvcc call compiles voting.cu, gates.cu, voxel.cu, graph_cond.cu and
+    trace.cu into one library, named by a hash of the sources and the flags: another
     graph_cond.cu is another library."""
     calls = []
 
@@ -167,18 +167,19 @@ def test_the_library_is_built_from_both_sources_in_one_nvcc_call(monkeypatch, tm
     monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: FakeLibrary(path))
     lib = _build._build_and_load(_build._SOURCE)
     (cmd,) = calls
-    assert cmd[0] == "nvcc" and cmd[-4:] == [str(_build._SOURCE), str(_build._GATES),
-                                             str(_build._GRAPH_COND), str(_build._TRACE)]
+    assert cmd[0] == "nvcc" and cmd[-5:] == [str(_build._SOURCE), str(_build._GATES),
+                                             str(_build._VOXEL), str(_build._GRAPH_COND),
+                                             str(_build._TRACE)]
     assert lib.path == str(_build.BuildInfo.path) and _build.BuildInfo.path.exists()
     assert {"pcs_vote_state", "pcs_vote_histogram", "pcs_round_gates", "pcs_if_begin",
             "pcs_if_end", "pcs_stream_create", "pcs_trace_stamp",
-            "pcs_trace_now"} <= set(lib.entries)
+            "pcs_trace_now", "pcs_voxel_sums"} <= set(lib.entries)
     _build._build_and_load(_build._SOURCE)         # built: loaded, no nvcc
     assert len(calls) == 1 and _build.BuildInfo.seconds == 0.0
     other = tmp_path / "graph_cond.cu"
     other.write_text(_build._GRAPH_COND.read_text() + "// another\n")
     monkeypatch.setattr(_build, "_GRAPH_COND", other)
-    assert _build._library_path((_build._SOURCE, _build._GATES, other,
+    assert _build._library_path((_build._SOURCE, _build._GATES, _build._VOXEL, other,
                                  _build._TRACE)) != lib.path
     _build._build_and_load(_build._SOURCE)
     assert len(calls) == 2

@@ -74,7 +74,8 @@ def test_off_the_span_is_the_shared_noop_and_frames_leave_the_tracer_empty():
 
 
 def stage_order(live):
-    names = ["frame.begin", "preproc.end", "hough.init.end"]
+    names = ["frame.begin", "preproc.begin", "preproc.sorted", "preproc.end",
+             "hough.init.end"]
     for r in range(live):
         names += [f"round[{r}].begin", f"round[{r}].gates.end", f"round[{r}].vote.begin",
                   f"round[{r}].end"]
